@@ -1,0 +1,144 @@
+"""Shared NN building blocks, NCHW (counterpart of the JAX package's
+`models/layers.py`).
+
+Parameter names follow the reference torch checkpoint: d2 `Conv2d` with a
+`.norm` child, `Sequential(conv, bn, act)` conv-BN blocks (`.0`, `.1`), and
+`MLP.layers.{i}`. Norm epsilons follow the JAX package, not torch's
+defaults: FrozenBN and ConvBN's BN 1e-5, the camera ConvStack's BN 1e-3,
+LayerNorm and GroupNorm 1e-6 (the Flax defaults).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+FLAX_NORM_EPS = 1e-6
+
+
+class FrozenBatchNorm2d(nn.Module):
+    """BatchNorm with frozen statistics folded to a per-channel affine
+    (detectron2 FrozenBatchNorm2d: weight, bias, running_mean, running_var
+    buffers)."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.register_buffer("weight", torch.ones(num_features))
+        self.register_buffer("bias", torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x):
+        mul = self.weight * torch.rsqrt(self.running_var + self.eps)
+        add = self.bias - self.running_mean * mul
+        return x * mul[None, :, None, None] + add[None, :, None, None]
+
+
+class EvalBatchNorm2d(nn.Module):
+    """Trainable-BN layer of the reference, run with its running statistics
+    (inference only). Reads `num_batches_tracked` from a checkpoint and drops
+    it, so the reference's state_dict loads strictly."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        state_dict.pop(prefix + "num_batches_tracked", None)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def forward(self, x):
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return (x - self.running_mean[None, :, None, None]) * mul[None, :, None, None] \
+            + self.bias[None, :, None, None]
+
+
+class ConvNorm(nn.Conv2d):
+    """d2 `Conv2d` with a `norm` child and an optional ReLU."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
+                 bias: bool = False, norm: nn.Module | None = None, relu: bool = False):
+        super().__init__(in_ch, out_ch, kernel_size, stride=stride,
+                         padding=kernel_size // 2, bias=bias)
+        self.norm = norm
+        self.relu = relu
+
+    def forward(self, x):
+        x = super().forward(x)
+        if self.norm is not None:
+            x = self.norm(x)
+        return F.relu(x) if self.relu else x
+
+
+def conv_gn(in_ch: int, out_ch: int, kernel_size: int, relu: bool = True) -> ConvNorm:
+    """Conv2D + GroupNorm(32) + optional relu (d2 Conv2d norm='GN')."""
+    return ConvNorm(in_ch, out_ch, kernel_size,
+                    norm=nn.GroupNorm(32, out_ch, eps=FLAX_NORM_EPS), relu=relu)
+
+
+def conv_bn(in_ch: int, out_ch: int, kernel_size: int = 1, stride: int = 1,
+            eps: float = 1e-5, leaky: bool = False) -> nn.Sequential:
+    """Sequential(Conv2d(bias=False), BatchNorm2d, ReLU | LeakyReLU(0.01))."""
+    act = nn.LeakyReLU(0.01) if leaky else nn.ReLU()
+    return nn.Sequential(
+        nn.Conv2d(in_ch, out_ch, kernel_size, stride=stride, padding=kernel_size // 2,
+                  bias=False),
+        EvalBatchNorm2d(out_ch, eps=eps),
+        act,
+    )
+
+
+class MLP(nn.Module):
+    """num_layers Linear layers with ReLU between (not after the last)."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, output_dim: int, num_layers: int):
+        super().__init__()
+        dims_in = [input_dim] + [hidden_dim] * (num_layers - 1)
+        dims_out = [hidden_dim] * (num_layers - 1) + [output_dim]
+        self.layers = nn.ModuleList(nn.Linear(i, o) for i, o in zip(dims_in, dims_out))
+
+    def forward(self, x):
+        last = len(self.layers) - 1
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i < last:
+                x = F.relu(x)
+        return x
+
+
+def sine_position_embedding(h: int, w: int, num_pos_feats: int = 128,
+                            temperature: float = 10000.0) -> torch.Tensor:
+    """DETR sine positional embedding (normalize=True, scale=2*pi) for an
+    h x w map -> [h*w, 2*num_pos_feats], flattened row-major (y, x)."""
+    y_embed = np.tile(np.arange(1, h + 1, dtype=np.float32)[:, None], (1, w))
+    x_embed = np.tile(np.arange(1, w + 1, dtype=np.float32)[None, :], (h, 1))
+    eps = 1e-6
+    scale = 2 * np.pi
+    y_embed = y_embed / (y_embed[-1:, :] + eps) * scale
+    x_embed = x_embed / (x_embed[:, -1:] + eps) * scale
+
+    dim_t = np.arange(num_pos_feats, dtype=np.float32)
+    dim_t = temperature ** (2 * (dim_t // 2) / num_pos_feats)
+
+    pos_x = x_embed[:, :, None] / dim_t
+    pos_y = y_embed[:, :, None] / dim_t
+    pos_x = np.stack([np.sin(pos_x[:, :, 0::2]), np.cos(pos_x[:, :, 1::2])], axis=3).reshape(h, w, -1)
+    pos_y = np.stack([np.sin(pos_y[:, :, 0::2]), np.cos(pos_y[:, :, 1::2])], axis=3).reshape(h, w, -1)
+    pos = np.concatenate([pos_y, pos_x], axis=2).reshape(h * w, 2 * num_pos_feats)
+    return torch.from_numpy(pos.astype(np.float32))
+
+
+def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """NCHW nearest-neighbour upsample by an integer factor."""
+    return x.repeat_interleave(factor, dim=2).repeat_interleave(factor, dim=3)
+
+
+def upsample_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """NCHW bilinear resize, align_corners=False."""
+    return F.interpolate(x, size=(out_h, out_w), mode="bilinear", align_corners=False)

@@ -1,0 +1,103 @@
+"""Package rules of the port: it imports torch and never JAX, flax or the
+JAX package; its entry points default to CUDA; its config reads the repo's
+yaml files like the JAX package's does; its CLI runs on the CPU."""
+import json
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import nopesac_torch
+from nopesac_tpu.config.config import get_cfg as jax_get_cfg
+
+from nopesac_torch.config.config import get_cfg
+from nopesac_torch.utils.device import LAUNCHES, KERNEL_NAMES, resolve_device
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "nopesac_torch")
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(nopesac_torch.__path__, "nopesac_torch."))
+
+
+def test_importing_every_module_loads_no_jax():
+    mods = _modules()
+    assert "nopesac_torch.engine.predict" in mods and "nopesac_torch.ops.select" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
+            "'nopesac_tpu'))\n"
+            "print(len(sys.modules), bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_no_file_names_jax_or_the_jax_package():
+    pattern = re.compile(r"nopesac_tpu|\bjax\b|\bflax\b")
+    hits = []
+    for root, _, files in os.walk(PKG):
+        for name in files:
+            if name.endswith((".py", ".cu", ".cuh")):
+                path = os.path.join(root, name)
+                with open(path) as f:
+                    for i, line in enumerate(f, 1):
+                        if pattern.search(line):
+                            hits.append(f"{os.path.relpath(path, REPO)}:{i}: {line.strip()}")
+    assert not hits, "\n".join(hits)
+
+
+def test_default_device_is_cuda():
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            resolve_device()
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_launch_counters_start_at_zero_and_reset():
+    assert set(LAUNCHES.snapshot()) == set(KERNEL_NAMES)
+    LAUNCHES.bump("sinkhorn")
+    assert LAUNCHES["sinkhorn"] >= 1
+    LAUNCHES.reset()
+    assert all(v == 0 for v in LAUNCHES.snapshot().values())
+
+
+@pytest.mark.parametrize("config", ["inference_mp3d.yaml", "inference_scannet.yaml",
+                                    "smoke_synthetic.yaml"])
+def test_config_copy_reads_repo_yamls_like_the_jax_package(config):
+    ours, theirs = get_cfg(), jax_get_cfg()
+    for cfg in (ours, theirs):
+        cfg.merge_from_file(os.path.join(REPO, "configs", config))
+        cfg.merge_from_list(["TEST.IMS_PER_BATCH", "2"])
+    a, b = ours.to_dict(), theirs.to_dict()
+    assert a["MODEL"].pop("DEVICE") == "cuda"
+    b["MODEL"].pop("DEVICE")
+    assert a == b
+
+
+def test_predict_cli_on_cpu():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "nopesac_torch.engine.predict",
+         "--config-file", os.path.join(REPO, "configs", "inference_mp3d.yaml"),
+         "--pairs", "3", "--seed", "1", "--device", "cpu",
+         "INPUT.IMAGE_SIZE", "(64, 96)", "TEST.IMS_PER_BATCH", "2",
+         "MODEL.MATCHING_HEAD.SINKHORN_ITERS", "5"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    rows = [json.loads(line) for line in proc.stdout.splitlines()]
+    pairs = [r for r in rows if "pair" in r]
+    assert [r["pair"] for r in pairs] == [0, 1, 2]
+    assert all(len(r["rot"]) == 4 and abs(sum(x * x for x in r["rot"]) - 1) < 1e-4
+               for r in pairs)
+    assert [r["pairs"] for r in rows if "batch" in r] == [2, 1]

@@ -1,0 +1,90 @@
+"""`state_dict_from_jax` is the inverse of the JAX package's torch importer.
+
+The JAX parameter and batch-stats trees of the full inference model at the
+reference's 480x640 (where the camera fc layers flatten a 128x2x3 grid) are
+filled with seeded random values (shapes from `jax.eval_shape`, so nothing
+is compiled). The port's state_dict is saved to a .pth, read back through
+`import_torch_weights(..., return_report=True)`, and must give back every
+leaf bit for bit with no checkpoint tensor left unconsumed; the same
+state_dict must load strictly into the port's model.
+"""
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nopesac_tpu.config.config import get_cfg as jax_get_cfg
+from nopesac_tpu.engine.trainer import build_model_from_cfg as jax_build_model
+from nopesac_tpu.utils.torch_import import import_torch_weights
+
+from nopesac_torch.config.config import get_cfg
+from nopesac_torch.engine.predict import build_model_from_cfg
+from nopesac_torch.utils.weights import state_dict_from_jax
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIG = os.path.join(REPO, "configs", "inference_mp3d.yaml")
+H, W = 480, 640
+
+
+@pytest.fixture(scope="module")
+def trees():
+    cfg = jax_get_cfg()
+    cfg.merge_from_file(CONFIG)
+    model = jax_build_model(cfg)
+    x = jnp.zeros((1, H, W, 3), jnp.float32)
+    shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), x, x, out_h=H, out_w=W,
+                                               method=model.inference))
+    rng = np.random.default_rng(0)
+
+    def fill(path, leaf):
+        if path[-1].key == "var":
+            return rng.uniform(0.5, 2.0, leaf.shape).astype(np.float32)
+        return rng.normal(0, 1, leaf.shape).astype(np.float32)
+
+    filled = jax.tree_util.tree_map_with_path(fill, shapes)
+    return filled["params"], filled["batch_stats"]
+
+
+@pytest.fixture(scope="module")
+def state_dict(trees):
+    return state_dict_from_jax(*trees, image_size=(H, W))
+
+
+def _leaves(tree):
+    return {jax.tree_util.keystr(p): np.asarray(v)
+            for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def test_importer_inverts_state_dict_from_jax(trees, state_dict, tmp_path):
+    params, stats = trees
+    path = tmp_path / "port.pth"
+    torch.save({"model": state_dict}, path)
+    zeros = jax.tree_util.tree_map(np.zeros_like, (params, stats))
+    got_params, got_stats, report = import_torch_weights(
+        zeros[0], str(path), batch_stats=zeros[1], return_report=True)
+    assert report["unconsumed"] == []
+    assert report["n_checkpoint"] == len(state_dict)
+    for want, got in ((params, got_params), (stats, got_stats)):
+        lw, lg = _leaves(want), _leaves(got)
+        assert sorted(lw) == sorted(lg)
+        for key, v in lw.items():
+            np.testing.assert_array_equal(lg[key], v, err_msg=key)
+
+
+def test_port_model_loads_strictly(state_dict):
+    cfg = get_cfg()
+    cfg.merge_from_file(CONFIG)
+    model = build_model_from_cfg(cfg, device="cpu")
+    assert sorted(model.state_dict()) == sorted(state_dict)
+    model.load_state_dict(state_dict, strict=True)
+    # a reference checkpoint also carries BatchNorm2d's num_batches_tracked
+    extra = {k.rsplit(".", 1)[0] + ".num_batches_tracked": torch.tensor(7)
+             for k in state_dict if k.endswith(".1.running_var")}
+    assert extra
+    model.load_state_dict({**state_dict, **extra}, strict=True)
+    w = state_dict["camera_head_list.0.fc_trans.weight"]
+    assert tuple(w.shape) == (256, 128 * 2 * 3)
+    assert torch.equal(model.camera_head.fc_trans.weight, w)
