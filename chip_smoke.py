@@ -22,12 +22,32 @@ Phases, in order; any failure exits non-zero before the last line:
      filter, several valid queries, more than one match per pair), on the
      card against the CPU; and their time against the main path's regime;
   7. reference: the same eval step at 96x128 on the card (through the
-     kernels) against the CPU (through their plain versions).
+     kernels) against the CPU (through their plain versions);
+  8. B3 (mask_loss_fwd, mask_loss_bwd) at one supervision level of the train
+     step: [32, 50, 120, 160] logits, [32, 50, 480, 640] uint8 masks, 12
+     matched queries per view; kernel against its plain version: sums within
+     rtol 1e-4, d src within 1e-4 of max |d src|, exact zeros for unmatched
+     queries, and an all-unmatched batch;
+  9. train path: the train step of configs/train_mp3d_step3.yaml (f32, 16
+     pairs of 480x640, seeded random weights) on synthetic pairs of 12
+     planes per view from the port's generator, a warm-up step, then 3
+     steps: every loss of the JAX train_forward present and finite, no
+     skipped step, a finite positive gradient norm in each of the four
+     modules, each B3 counter at 3 per step, B1 and B2 not launched;
+ 10. train reference: one train step of one pair at 96x128
+     (configs/smoke_synthetic.yaml, dropout 0, AIM random poses injected)
+     on the card and on the CPU from the same weights and batch: the match
+     of every supervision level equal, every loss within max(1e-4, 1e-3
+     relative), the gradient norm within 1e-3 relative, the parameters
+     after the AdamW step within 1e-5 relative (norm over the model).
 Phases 6 and 7 hold the card to the CPU as the CPU is held to JAX in
 tests/test_torch_slice.py: valid planes equal, labels agree on >= 99.9% of
-pixels, log-scores within 1.5e-3 and every camera within 1e-3.
+pixels, log-scores within 1.5e-3 and every camera within 1e-3; phase 10 does
+the same with the tolerances of tests/test_torch_train.py.
 Then one JSON line with every kernel's launches, error and times, and, last,
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+The launches of B1 and B2 are those of the eval path (phase 5), those of B3
+those of the train path (phase 9).
 
 Kernel times are CUDA-event means over many warm launches. `bound_ms` is the
 larger of bytes moved / 3.35 TB/s and f32 operations / 67 TFLOP/s (H100 SXM
@@ -42,11 +62,25 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "inference_mp3d.yaml")
+TRAIN_CONFIG = os.path.join(REPO, "configs", "train_mp3d_step3.yaml")
+SMOKE_CONFIG = os.path.join(REPO, "configs", "smoke_synthetic.yaml")
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 N_PAIRS = 4        # TEST.IMS_PER_BATCH
 N_BATCHES = 3
 SINKHORN_ITERS = 200
+TRAIN_PAIRS = 16   # SOLVER.IMS_PER_BATCH
+TRAIN_STEPS = 3
+TRAIN_PLANES = 12  # the generator's full 4 x 3 grid
+# B3 operation counts per output pixel of a matched query, from
+# csrc/mask_loss.cu (exp, log1p and a division count one each): forward, the
+# 2x2 stencil (9), the shared-exp focal/dice terms (22) and the four sums
+# (8); backward, the same stencil and terms, dz from the three incoming
+# gradients (19) and the adjoint stencil (5)
+MASK_FWD_OPS = 39
+MASK_BWD_OPS = 55
+LOSS_ABS, LOSS_REL = 1e-4, 1e-3  # tests/test_torch_train.py
+MATCH_GAP = 1e-3
 
 
 class SmokeFailure(Exception):
@@ -265,9 +299,9 @@ def run_main_path(torch, dev, card):
     print(f"[main] {ms:.2f} ms/batch of {N_PAIRS} pairs, {N_PAIRS * N_BATCHES / secs:.2f} pairs/s "
           f"on {card}; launches {counts}; valid planes per view {planes}; matches per pair "
           f"{[int(x) for o in outs for x in o['num_matches']]}")
-    for name, n in counts.items():
-        if n != N_BATCHES:
-            raise SmokeFailure(f"kernel {name} launched {n} times in {N_BATCHES} batches")
+    want = {"select_maps": N_BATCHES, "sinkhorn": N_BATCHES, "mask_loss_fwd": 0, "mask_loss_bwd": 0}
+    if counts != want:
+        raise SmokeFailure(f"eval path launches {counts}, want {want}")
     return counts, model, batches[0]
 
 
@@ -367,6 +401,285 @@ def check_small_reference(torch, dev):
     compare_with_cpu(torch, *outs, "reference 96x128")
 
 
+def mask_loss_inputs(torch, seed, b, nq, h, w, n_matched, grid=(3, 4)):
+    """Seeded logits with coarse structure, disjoint GT masks (a grid of
+    planes per view, ids shuffled) and n_matched matched queries per view,
+    made on the host."""
+    gen = torch.Generator().manual_seed(seed)
+    coarse = torch.randn((b, nq, h // 4, w // 4), generator=gen) * 4.0
+    src = coarse.repeat_interleave(4, dim=2).repeat_interleave(4, dim=3)
+    src = src + torch.randn((b, nq, h, w), generator=gen)
+    gh, gw = 4 * h, 4 * w
+    k = grid[0] * grid[1]
+    cell = ((torch.arange(gh) // (gh // grid[0]))[:, None] * grid[1]
+            + (torch.arange(gw) // (gw // grid[1]))[None, :])  # [gh, gw] cell id
+    onehot = (cell[None] == torch.arange(k)[:, None, None]).to(torch.uint8)  # [k, gh, gw]
+    masks = torch.zeros((b, nq, gh, gw), dtype=torch.uint8)
+    tgt = torch.zeros((b, nq), dtype=torch.int64)
+    matched = torch.zeros((b, nq), dtype=torch.bool)
+    for i in range(b):
+        masks[i, torch.randperm(k, generator=gen)] = onehot
+        q = torch.randperm(nq, generator=gen)[:n_matched]
+        tgt[i, q] = torch.randperm(k, generator=gen)[:n_matched]
+        matched[i, q] = True
+    return src, masks, tgt, matched
+
+
+def check_mask_loss(torch, dev):
+    from nopesac_torch.ops import mask_loss
+
+    b, nq, h, w, n_matched = 2 * TRAIN_PAIRS, 50, 120, 160, TRAIN_PLANES
+    src, masks, tgt, matched = (t.to(dev) for t in mask_loss_inputs(torch, 3, b, nq, h, w,
+                                                                       n_matched))
+    weights = torch.randn((b, nq, 4), generator=torch.Generator().manual_seed(4)).to(dev)
+
+    def sums_and_grad(fn, m):
+        x = src.clone().requires_grad_(True)
+        sums = fn(x, masks, tgt, m)
+        torch.autograd.backward(torch.stack(sums, dim=-1), weights)
+        return torch.stack(sums, dim=-1).detach(), x.grad
+
+    k_sums, k_grad = sums_and_grad(mask_loss.fused_focal_dice, matched)
+    p_sums, p_grad = sums_and_grad(mask_loss.focal_dice_plain, matched)
+    z_sums, z_grad = sums_and_grad(mask_loss.fused_focal_dice, torch.zeros_like(matched))
+    torch.cuda.synchronize()
+    sum_rel = float(((k_sums - p_sums).abs() / p_sums.abs().clamp_min(1e-30))[matched].max())
+    sum_err = float((k_sums - p_sums).abs().max())
+    scale = float(p_grad.abs().max())
+    grad_err = float((k_grad - p_grad).abs().max())
+    zeros_ok = (bool((k_sums[~matched] == 0).all()) and bool((k_grad[~matched] == 0).all())
+                and not bool(z_sums.any()) and not bool(z_grad.any()))
+    print(f"[B3 mask_loss] {int(matched.sum())} matched of {b * nq} queries at [{b}, {nq}, {h}, "
+          f"{w}] -> {4 * h}x{4 * w}: sums max rel err {sum_rel:.3e} (max abs {sum_err:.3e}), "
+          f"d src max err {grad_err:.3e} of max |d src| {scale:.3e}; unmatched and all-unmatched "
+          f"exact zeros: {zeros_ok}")
+    if not (sum_rel <= 1e-4 and grad_err <= 1e-4 * scale and zeros_ok):
+        raise SmokeFailure("B3 kernel disagrees with its plain version")
+
+    idx = mask_loss._flat_index(masks, tgt, matched)
+    grad3 = weights[..., :3].reshape(-1, 3).contiguous()
+    ms_fwd = cuda_ms(torch, lambda: mask_loss.mask_loss_fwd_cuda(src, masks, idx), iters=50)
+    ms_bwd = cuda_ms(torch, lambda: mask_loss.mask_loss_bwd_cuda(src, masks, idx, grad3),
+                     iters=50)
+
+    def plain_fwd():
+        return mask_loss.focal_dice_plain(src.detach().requires_grad_(True), masks, tgt, matched)
+
+    def plain_fwd_bwd():
+        torch.autograd.backward(torch.stack(plain_fwd(), dim=-1), weights)
+
+    plain_fwd_ms = cuda_ms(torch, plain_fwd, warm=2, iters=5)
+    plain_bwd_ms = cuda_ms(torch, plain_fwd_bwd, warm=2, iters=5) - plain_fwd_ms
+    n_m, n_px = int(matched.sum()), 16 * h * w
+    read = n_m * (h * w * 4 + n_px) + b * nq * 4  # matched logits, matched masks, index
+    fwd_bms, fwd_by = bound_ms(read + b * nq * 4 * 4, n_m * n_px * MASK_FWD_OPS)
+    bwd_bms, bwd_by = bound_ms(read + b * nq * 3 * 4 + b * nq * h * w * 4,
+                               n_m * n_px * MASK_BWD_OPS)
+    print(f"[B3 mask_loss] forward kernel {ms_fwd:.4f} ms (bound {fwd_bms:.4f} ms, {fwd_by}), "
+          f"plain {plain_fwd_ms:.3f} ms; backward kernel {ms_bwd:.4f} ms (bound {bwd_bms:.4f} "
+          f"ms, {bwd_by}), plain {plain_bwd_ms:.3f} ms")
+    common = {"route": "cuda", "source": "nopesac_torch/ops/csrc/mask_loss.cu",
+              "library_ms": None}
+    return [dict(common, name="mask_loss_fwd", replaces="nopesac_tpu/ops/mask_loss_pallas.py:199",
+                 max_abs_err=sum_err, ms=ms_fwd, plain_ms=plain_fwd_ms, bound_ms=fwd_bms,
+                 bound_by=fwd_by),
+            dict(common, name="mask_loss_bwd", replaces="nopesac_tpu/ops/mask_loss_pallas.py:235",
+                 max_abs_err=grad_err, ms=ms_bwd, plain_ms=plain_bwd_ms, bound_ms=bwd_bms,
+                 bound_by=bwd_by)]
+
+
+_DET = ("loss_ce", "loss_mask", "loss_dice", "loss_center_ins", "loss_param_l1", "loss_param_cos")
+_REF = ("tran_planeAvgReg", "rot_planeAvgReg", "tran_planeSoftReg", "rot_planeSoftReg",
+        "rotIdx", "transIdx", "paramL2_dist")
+# the loss keys of the JAX train_forward with every loss on (two aux levels)
+TRAIN_LOSS_KEYS = sorted(
+    list(_DET) + ["loss_center_pixel", "loss_q"]
+    + [f"{k}_{i}" for i in (0, 1) for k in _DET]
+    + ["losses_emb_0", "loss_tran_pixelReg", "loss_rot_pixelReg", "loss_rot_initCamRec",
+       "loss_trans_initCamRec", "loss_rot_randCamRecLBS_N1", "loss_trans_randCamRecLBS_N1"]
+    + [f"loss_{k}_{b}" for b in ("initCamRef", "initRecCamRef", "initCamRef_Aux",
+                                 "initRecCamRef_Aux") for k in _REF])
+TRAIN_MODULES = ("backbone", "sem_seg_head", "matching_head", "camera_head_list")
+
+
+def load_train_cfg(path, opts):
+    from nopesac_torch.config.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(path)
+    cfg.merge_from_list(opts)
+    cfg.freeze()
+    return cfg
+
+
+def module_grad_norms(torch, model):
+    norms = {}
+    for mod in TRAIN_MODULES:
+        sq = [p.grad.pow(2).sum() for n, p in model.named_parameters()
+              if n.startswith(mod) and p.grad is not None]
+        norms[mod] = float(torch.stack(sq).sum().sqrt()) if sq else 0.0
+    return norms
+
+
+def run_train_path(torch, dev, card):
+    import math
+
+    from nopesac_torch.engine.train import TrainStep, build_train_model, synthetic_batches
+    from nopesac_torch.utils.device import LAUNCHES
+
+    cfg = load_train_cfg(TRAIN_CONFIG, [
+        "MODEL.COMPUTE_DTYPE", "float32", "MODEL.BACKBONE_TRAIN_DTYPE", "float32",
+        "SOLVER.IMS_PER_BATCH", str(TRAIN_PAIRS), "INPUT.IMAGE_SIZE", "(480, 640)"])
+    t0 = time.perf_counter()
+    model = build_train_model(cfg, device=dev, seed=0)
+    step = TrainStep(model, cfg, seed=0)
+    batches = list(synthetic_batches(cfg, TRAIN_STEPS + 1, seed=1, n_planes=TRAIN_PLANES,
+                                     device=dev))
+    torch.cuda.synchronize()
+    print(f"[train] model and {TRAIN_STEPS + 1} batches of {TRAIN_PAIRS} pairs ({TRAIN_PLANES} "
+          f"planes per view) built in {time.perf_counter() - t0:.2f} s")
+    step(batches[0])  # warm-up (cuDNN autotuning, allocator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.reset()
+    times, rows = [], []
+    for batch in batches[1:]:
+        t0 = time.perf_counter()
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        rows.append((metrics, module_grad_norms(torch, model)))
+    counts = LAUNCHES.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    for k, (metrics, norms) in enumerate(rows):
+        losses = {n: float(v) for n, v in metrics.items()
+                  if n not in ("total_loss", "grad_norm", "skipped_nonfinite")}
+        if sorted(losses) != TRAIN_LOSS_KEYS:
+            raise SmokeFailure(f"train step {k}: loss keys differ from the JAX train_forward's: "
+                               f"{sorted(set(losses) ^ set(TRAIN_LOSS_KEYS))}")
+        bad = sorted(n for n, v in losses.items() if not math.isfinite(v))
+        if bad or float(metrics["skipped_nonfinite"]) != 0.0:
+            raise SmokeFailure(f"train step {k}: non-finite losses {bad}, skipped "
+                               f"{float(metrics['skipped_nonfinite'])}")
+        if not all(math.isfinite(v) and v > 0 for v in norms.values()):
+            raise SmokeFailure(f"train step {k}: gradient norms per module {norms}")
+        print(f"[train] step {k}: total {float(metrics['total_loss']):.4f}, grad norm "
+              f"{float(metrics['grad_norm']):.4f}, per module "
+              f"{ {m: round(v, 4) for m, v in norms.items()} }, {times[k] * 1e3:.1f} ms")
+    ms = statistics.mean(times) * 1e3
+    print(f"[train] {ms:.2f} ms/step of {TRAIN_PAIRS} pairs at 480x640 f32, "
+          f"{TRAIN_PAIRS / ms * 1e3:.2f} pairs/s, peak memory {peak / 2**30:.2f} GiB "
+          f"(max_memory_allocated) on {card}; launches {counts}")
+    want = {"mask_loss_fwd": 3 * TRAIN_STEPS, "mask_loss_bwd": 3 * TRAIN_STEPS,
+            "select_maps": 0, "sinkhorn": 0}
+    if counts != want:
+        raise SmokeFailure(f"train path launches {counts}, want {want}")
+    return counts
+
+
+def separate_queries(torch, model, seed):
+    """With random weights the queries are nearly one representation and the
+    optimal assignment nearly ties: larger query embeddings and a wider
+    plane-param layer separate them (tests/test_torch_train.py does the
+    same to the JAX init)."""
+    gen = torch.Generator().manual_seed(seed)
+    head = model.sem_seg_head
+    with torch.no_grad():
+        head.query_embed.weight.mul_(10.0)
+        head.plane_param.layers[2].weight.mul_(10.0)
+        for mlp in (head.plane_param, head.plane_center):
+            last = mlp.layers[2]
+            last.bias.copy_(torch.randn(last.bias.shape, generator=gen) * 0.5)
+
+
+def detect_matches(torch, model, batch):
+    """The Hungarian match and cost of every supervision level, from a
+    train-mode detect (the model's BN running statistics change)."""
+    from nopesac_torch.data.packing import unpack_targets
+    from nopesac_torch.losses.criterion import compute_match_cost, match_planes_multi
+
+    weights = model.train_settings.match_cost_weights()
+    t0, t1 = unpack_targets(batch["targets0"]), unpack_targets(batch["targets1"])
+    targets = {k: torch.cat([t0[k], t1[k]]) for k in t0}
+    with torch.no_grad():
+        images = torch.cat([batch["image0"], batch["image1"]]).permute(0, 3, 1, 2).contiguous()
+        _, out, _ = model.detect(images)
+        levels = [out] + out["aux_outputs"]
+        costs = [compute_match_cost(o, targets, weights).cpu() for o in levels]
+        return match_planes_multi(levels, targets, weights), costs, targets["gt_valid"].sum(1)
+
+
+def assignment_gap(cost, n_gt):
+    """Second-best minus optimal assignment cost on the [NQ, n_gt] block."""
+    from scipy.optimize import linear_sum_assignment
+
+    c = cost[:, :n_gt].double().numpy()
+    rows, cols = linear_sum_assignment(c)
+    best, second = c[rows, cols].sum(), float("inf")
+    for r, k in zip(rows, cols):
+        alt = c.copy()
+        alt[r, k] = 1e9
+        rr, cc = linear_sum_assignment(alt)
+        second = min(second, alt[rr, cc].sum())
+    return second - best
+
+
+def check_train_reference(torch, dev):
+    import copy
+
+    from nopesac_torch.engine.train import TrainStep, build_train_model, synthetic_batches
+    from nopesac_torch.losses import camera_losses
+    from nopesac_torch.models.nopesac import AIM_RAND_POSES
+
+    # one pair, as tests/test_torch_train.py: at 96x128 the pose stacks end
+    # at 1x1, where BN over two pairs' two values amplifies rounding noise
+    cfg = load_train_cfg(SMOKE_CONFIG, ["MODEL.SEM_SEG_HEAD.DROPOUT", "0.0",
+                                        "SOLVER.IMS_PER_BATCH", "1"])
+    cpu_model = build_train_model(cfg, device="cpu", seed=0)
+    separate_queries(torch, cpu_model, seed=1)
+    card_model = build_train_model(cfg, device=dev)
+    card_model.load_state_dict(cpu_model.state_dict())
+    batch = next(iter(synthetic_batches(cfg, 1, seed=5, n_planes=6, device="cpu")))
+    card_batch = {k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict)
+                      else v.to(dev)) for k, v in batch.items()}
+    b = batch["image0"].shape[0]
+    gen = torch.Generator().manual_seed(3)
+    n_aim = b * max(AIM_RAND_POSES // b, 1)
+    aim = [camera_losses.rand_aim_rot(gen, n_aim), camera_losses.rand_aim_trans(gen, n_aim)]
+
+    ref_match, costs, n_gt = detect_matches(torch, copy.deepcopy(cpu_model), batch)
+    got_match, _, _ = detect_matches(torch, copy.deepcopy(card_model), card_batch)
+    gap = min(assignment_gap(c[i], int(n_gt[i])) for c in costs for i in range(c.shape[0]))
+    if gap < MATCH_GAP:
+        raise SmokeFailure(f"train reference: the optimal assignment's gap {gap:.2e} is below "
+                           f"{MATCH_GAP}, so the match can tie")
+    if not all(torch.equal(g.cpu(), r) for g, r in zip(got_match, ref_match)):
+        raise SmokeFailure("train reference: the match differs between the card and the CPU")
+
+    ref = TrainStep(cpu_model, cfg, seed=0)(batch, *aim)
+    got = TrainStep(card_model, cfg, seed=0)(card_batch, *(a.to(dev) for a in aim))
+    bad = {}
+    for key, r in ref.items():
+        g, r = float(got[key]), float(r)
+        if key != "grad_norm" and not abs(g - r) <= max(LOSS_ABS, LOSS_REL * abs(r)):
+            bad[key] = (g, r)
+    gn_rel = abs(float(got["grad_norm"]) - float(ref["grad_norm"])) / float(ref["grad_norm"])
+    # AdamW's first step is ~lr * sign(g); where a gradient entry is at the
+    # rounding-noise level its sign may differ between the devices (a 2 * lr
+    # difference), so the parameters are compared by their relative norm
+    cpu_params = dict(cpu_model.named_parameters())
+    diff = sum(float((p.detach().cpu() - cpu_params[n].detach()).pow(2).sum())
+               for n, p in card_model.named_parameters())
+    param_rel = (diff / sum(float(p.detach().pow(2).sum()) for p in cpu_params.values())) ** 0.5
+    param_max = max(float((p.detach().cpu() - cpu_params[n].detach()).abs().max())
+                    for n, p in card_model.named_parameters())
+    print(f"[train reference 96x128] card vs CPU: match equal on {len(ref_match)} levels (gap "
+          f"{gap:.2e}), {len(ref) - 3} losses, {len(bad)} outside tolerance, grad norm rel "
+          f"{gn_rel:.2e}, params after AdamW rel {param_rel:.2e} (max |diff| {param_max:.2e})")
+    if bad or not gn_rel <= 1e-3 or not param_rel <= 1e-5:
+        raise SmokeFailure(f"train reference: the card disagrees with the CPU: {bad}")
+
+
 def main():
     try:
         import torch
@@ -394,6 +707,12 @@ def main():
         counts, model, images = run_main_path(torch, dev, card)
         run_planar_scene(torch, dev, model, images, card)
         check_small_reference(torch, dev)
+        del model
+        torch.cuda.empty_cache()
+        kernels += check_mask_loss(torch, dev)
+        counts.update({k: v for k, v in run_train_path(torch, dev, card).items()
+                       if k.startswith("mask_loss")})
+        check_train_reference(torch, dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -61,6 +61,16 @@ def normalize(v: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tenso
     return v / torch.clamp_min(n, eps)
 
 
+def quat_from_rotvec(rotvec: torch.Tensor) -> torch.Tensor:
+    """Rotation vector -> unit quaternion (w, x, y, z); [..., 3] -> [..., 4],
+    in the sinc form that is stable at angle -> 0."""
+    angle = torch.linalg.vector_norm(rotvec, dim=-1, keepdim=True)
+    small = angle < 1e-8
+    k = torch.where(small, torch.full_like(angle, 0.5),
+                    torch.sin(0.5 * angle) / torch.where(small, torch.ones_like(angle), angle))
+    return torch.cat([torch.cos(0.5 * angle), rotvec * k], dim=-1)
+
+
 def warp_planes_to_global(planes: torch.Tensor, quat: torch.Tensor,
                           tran: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Warp view-0 plane params (n*d) through the relative pose into the

@@ -21,16 +21,17 @@ import numpy as np
 import torch
 
 from ..config.config import CfgNode, get_cfg
-from ..models.nopesac import PlaneTRNopeSAC
+from ..models.nopesac import PlaneTRNopeSAC, TrainSettings
 from ..utils.device import DeviceLike, resolve_device, set_f32_parity
 from ..utils.weights import seeded_init
 
 
 def build_model_from_cfg(cfg: CfgNode, device: DeviceLike = None,
                          seed: Optional[int] = None) -> PlaneTRNopeSAC:
-    """The inference model of a config, in eval mode on `device` (default
-    `cuda`). `seed` fills it with seeded random weights; otherwise load a
-    state_dict into it. Sets the f32 precision policy."""
+    """The model of a config, in eval mode on `device` (default `cuda`),
+    with the config's loss switches and weights for `train_forward`. `seed`
+    fills it with seeded random weights; otherwise load a state_dict into it.
+    Sets the f32 precision policy."""
     dev = resolve_device(device)
     set_f32_parity()
     if cfg.MODEL.get("COMPUTE_DTYPE", "float32") != "float32":
@@ -39,6 +40,26 @@ def build_model_from_cfg(cfg: CfgNode, device: DeviceLike = None,
         raise NotImplementedError("MODEL.DEPTH_ON is not ported")
     h = cfg.MODEL.SEM_SEG_HEAD
     cam = cfg.MODEL.CAMERA_HEAD
+    settings = TrainSettings(
+        loss_detection_on=cfg.MODEL.LOSS_DETECTION_ON,
+        loss_camera_on=cfg.MODEL.LOSS_CAMERA_ON,
+        loss_matching_on=cfg.MODEL.LOSS_EMB_ON,
+        matcher_on=cfg.MODEL.HUNGARIAN_MATCHER_ON,
+        rand_on=cam.RAND_ON,
+        no_object_weight=h.NO_OBJECT_WEIGHT,
+        dice_weight=h.DICE_WEIGHT,
+        mask_weight=h.MASK_WEIGHT,
+        param_weight_l1=h.PARAM_WEIGHT_L1,
+        param_weight_cos=h.PARAM_WEIGHT_COS,
+        param_hm_weight_l1=h.PARAM_HM_WEIGHT_L1,
+        param_weight_q=h.PARAM_WEIGHT_Q,
+        center_ins_weight=h.PARAM_WEIGHT_CENTER_INS,
+        param_weight_angle=h.PARAM_WEIGHT_ANGLE,
+        param_weight_offset=h.PARAM_WEIGHT_OFFSET,
+        initial_cam_weight=cam.INITIAL_CAM_WEIGHT,
+        plane_cam_weight=cam.PLANE_CAM_WEIGHT,
+        plane_cam_weight_predplane=cam.PLANE_CAM_WEIGHT_PREDPLANE,
+    )
     model = PlaneTRNopeSAC(
         image_size=tuple(cfg.INPUT.IMAGE_SIZE),
         num_queries=h.NUM_OBJECT_QUERIES,
@@ -55,6 +76,8 @@ def build_model_from_cfg(cfg: CfgNode, device: DeviceLike = None,
         overlap_threshold=cfg.TEST.OVERLAP_THRESHOLD,
         matching_score_threshold=cfg.TEST.MATCHING_SCORE_THRESHOLD,
         inference_out_cam_type=cam.INFERENCE_OUT_CAM_TYPE,
+        transformer_dropout=h.get("DROPOUT", 0.1),
+        train_settings=settings,
     )
     if seed is not None:
         seeded_init(model, seed)

@@ -1,11 +1,15 @@
-"""Where the eval step's time goes on the card.
+"""Where the eval step's or the train step's time goes on the card.
 
     python -m nopesac_torch.engine.profile [--config-file configs/inference_mp3d.yaml]
         [--batches 5] [--out FILE]
+    python -m nopesac_torch.engine.profile --train [--config-file configs/train_mp3d_step3.yaml]
+        [--batches 3] [--out FILE] [KEY VALUE ...]
 
-Builds the inference model with seeded random weights, runs a warm-up batch
-of TEST.IMS_PER_BATCH synthetic uint8 pairs, then makes two timed passes of
-`--batches` batches each:
+The eval step: builds the inference model with seeded random weights, runs a
+warm-up batch of TEST.IMS_PER_BATCH synthetic uint8 pairs. The train step
+(`--train`, f32): builds the train model and TrainStep, runs a warm-up step
+on SOLVER.IMS_PER_BATCH synthetic pairs of 12 planes per view. Then two
+timed passes of `--batches` batches each:
   1. without the profiler: the wall time per batch and, per stage, the span
      between CUDA events recorded around the stage on the stream (the
      device-side span, which includes the gaps while the host is still
@@ -13,7 +17,10 @@ of TEST.IMS_PER_BATCH synthetic uint8 pairs, then makes two timed passes of
   2. under torch.profiler: the summed device time of all kernels and the
      kernels that take the most of it. The busy share is pass 2's kernel
      time over pass 1's wall time (the profiler slows the host down).
-Needs a CUDA card. Prints one JSON object and, with `--out`, writes it there.
+In the train step the spans are the forward (with the host LSA matcher and
+the criterion inside it) and the optimizer update; the backward is the
+step's span less those two. Needs a CUDA card. Prints one JSON object and,
+with `--out`, writes it there.
 """
 from __future__ import annotations
 
@@ -27,7 +34,9 @@ from collections import defaultdict
 import torch
 
 from ..config.config import get_cfg
+from ..models import nopesac as nopesac_module
 from .predict import build_model_from_cfg, make_eval_step, synthetic_pairs
+from .train import TrainStep, build_train_model, synthetic_batches
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -56,47 +65,90 @@ class StageTimer:
         return {k: sum(s.elapsed_time(e) for s, e in v) for k, v in self.events.items()}
 
 
+def _eval_setup(cfg, n_batches):
+    h, w = cfg.INPUT.IMAGE_SIZE
+    bs = cfg.TEST.IMS_PER_BATCH
+    model = build_model_from_cfg(cfg, seed=0)
+    step = make_eval_step(model, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
+    batches = [synthetic_pairs(bs, h, w, seed=s) for s in range(n_batches + 1)]
+    head = model.camera_head
+    spans = ((model.backbone, "forward", "backbone"),
+             (model.sem_seg_head, "forward", "plane_head"),
+             (model, "select_planes", "select_planes"),
+             (head, "pixel_camera", "pixel_camera"),
+             (model.matching_head.gnn, "forward", "matching_gnn"),
+             (model.matching_head, "forward", "matching_head"),
+             (head, "refine", "refine"),
+             (model, "inference", "total"))
+    return bs, lambda b: step(*b), batches, spans
+
+
+def _train_setup(cfg, n_batches):
+    model = build_train_model(cfg, seed=0)
+    step = TrainStep(model, cfg, seed=0)
+    batches = list(synthetic_batches(cfg, n_batches + 1, seed=1, n_planes=12))
+    head = model.camera_head
+    spans = ((model.backbone, "forward", "backbone"),
+             (model.sem_seg_head, "forward", "plane_head"),
+             (nopesac_module, "match_planes_multi", "matcher"),
+             (nopesac_module, "detection_losses_siamese", "criterion"),
+             (model.matching_head, "forward", "matching_head"),
+             (head, "pixel_camera", "pixel_camera"),
+             (head, "refine", "refine"),
+             (model, "train_forward", "forward"),
+             (step, "apply_gradients", "optimizer"))
+    return cfg.SOLVER.IMS_PER_BATCH, step, batches, spans
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--config-file", default=os.path.join(REPO, "configs", "inference_mp3d.yaml"))
+    ap.add_argument("--config-file", default=None,
+                    help="default: configs/inference_mp3d.yaml, or train_mp3d_step3.yaml")
+    ap.add_argument("--train", action="store_true", help="profile the train step")
     ap.add_argument("--batches", type=int, default=5)
     ap.add_argument("--out", default=None)
+    ap.add_argument("opts", nargs=argparse.REMAINDER, help="KEY VALUE config overrides")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA card")
 
     cfg = get_cfg()
-    cfg.merge_from_file(args.config_file)
+    default = "train_mp3d_step3.yaml" if args.train else "inference_mp3d.yaml"
+    cfg.merge_from_file(args.config_file or os.path.join(REPO, "configs", default))
+    if args.train:
+        cfg.merge_from_list(["MODEL.COMPUTE_DTYPE", "float32",
+                             "MODEL.BACKBONE_TRAIN_DTYPE", "float32"])
+    if args.opts:
+        cfg.merge_from_list(args.opts)
     h, w = cfg.INPUT.IMAGE_SIZE
-    bs = cfg.TEST.IMS_PER_BATCH
-    model = build_model_from_cfg(cfg, seed=0)
-    step = make_eval_step(model, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
-    batches = [synthetic_pairs(bs, h, w, seed=s) for s in range(args.batches + 1)]
-    step(*batches[0])  # warm-up
+    bs, step, batches, spans = (_train_setup if args.train else _eval_setup)(cfg, args.batches)
+    step(batches[0])  # warm-up
     torch.cuda.synchronize()
 
     timer = StageTimer()
-    head = model.camera_head
-    for obj, attr, name in ((model.backbone, "forward", "backbone"),
-                            (model.sem_seg_head, "forward", "plane_head"),
-                            (model, "select_planes", "select_planes"),
-                            (head, "pixel_camera", "pixel_camera"),
-                            (model.matching_head.gnn, "forward", "matching_gnn"),
-                            (model.matching_head, "forward", "matching_head"),
-                            (head, "refine", "refine"),
-                            (model, "inference", "total")):
+    for obj, attr, name in spans:
         timer.wrap(obj, attr, name)
+    torch.cuda.reset_peak_memory_stats()
+    totals = []
     t0 = time.perf_counter()
-    for pair in batches[1:]:
-        step(*pair)
+    for batch in batches[1:]:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(batch)
+        end.record()
+        totals.append((start, end))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     stages = {k: v / args.batches for k, v in timer.ms().items()}
+    if args.train:
+        stages["step"] = sum(s.elapsed_time(e) for s, e in totals) / args.batches
+        stages["backward"] = stages["step"] - stages["forward"] - stages["optimizer"]
+    peak = torch.cuda.max_memory_allocated()
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        for pair in batches[1:]:
-            step(*pair)
+        for batch in batches[1:]:
+            step(batch)
         torch.cuda.synchronize()
     kernels = []  # device-side events only (kernels, memcpy, memset)
     for evt in prof.key_averages():
@@ -110,8 +162,9 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, timeout=60)
     result = {
         "device": torch.cuda.get_device_name(0), "card": smi.stdout.strip().splitlines()[0],
-        "pairs_per_batch": bs, "image": [h, w],
+        "step": "train" if args.train else "eval", "pairs_per_batch": bs, "image": [h, w],
         "sinkhorn_iters": cfg.MODEL.MATCHING_HEAD.SINKHORN_ITERS,
+        "peak_memory_gib": peak / 2**30,
         "wall_ms_per_batch": wall_ms, "pairs_per_s": bs / wall_ms * 1e3,
         "kernel_ms_per_batch": busy_ms, "busy_share": busy_ms / wall_ms,
         "kernel_launches_per_batch": sum(k[2] for k in kernels),

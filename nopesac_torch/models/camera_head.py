@@ -1,4 +1,4 @@
-"""NOPE-SAC camera head, inference branch (counterpart of the JAX package's
+"""NOPE-SAC camera head (counterpart of the JAX package's
 `models/camera_head.py`; reference checkpoint names under
 `camera_head_list.0.`): initial pose regression from a 4D correlation
 volume, the pose auto-encoders (AIM) and one-plane pose-hypothesis
@@ -24,6 +24,7 @@ from ..core.geometry import (
 from .layers import MLP, conv_bn, conv_gn, upsample_nearest
 
 CONV_STACK_BN_EPS = 1e-3
+CONV_STACK_BN_MOMENTUM = 0.99
 POSE_CONV_STRIDES = (1, 2, 1, 2, 1, 2)
 
 
@@ -70,6 +71,17 @@ def build_geo_sequence(params1, params2, assignment, max_matches: int):
     return torch.cat([m1, m2], dim=-1), valid, num
 
 
+def build_gt_geo_sequence(gt_planes1, gt_planes2, corr_idx1, corr_idx2, corr_valid):
+    """GT correspondences -> matched plane-pair sequence (geo [B, M, 6],
+    valid [B, M] bool, num [B] int32). gt_planes1/2 [B, N, 3] zero-padded;
+    corr_idx1/2 [B, M] (0 where invalid); corr_valid [B, M] bool."""
+    m1 = torch.gather(gt_planes1, 1, corr_idx1.long()[..., None].expand(-1, -1, 3))
+    m2 = torch.gather(gt_planes2, 1, corr_idx2.long()[..., None].expand(-1, -1, 3))
+    v = corr_valid[..., None].to(gt_planes1.dtype)
+    return (torch.cat([m1 * v, m2 * v], dim=-1), corr_valid,
+            corr_valid.to(torch.int32).sum(dim=-1, dtype=torch.int32))
+
+
 def warp_geo_sequence(geo_local, tran, quat):
     """Local matched-pair sequence [B, M, 6] -> global frame (zero padding
     stays zero)."""
@@ -113,11 +125,13 @@ class BasePixelDecoder(nn.Module):
 
 
 def _conv_stack(in_ch, out_ch, strides, pool_after=()):
-    """conv3x3 + BN(eps 1e-3) + LeakyReLU(0.01) per stride, a 2x2 max pool
-    after the listed convs (torch Sequential indices skip the pools)."""
+    """conv3x3 + BN(eps 1e-3, momentum 0.99) + LeakyReLU(0.01) per stride, a
+    2x2 max pool after the listed convs (torch Sequential indices skip the
+    pools)."""
     mods = []
     for i, s in enumerate(strides):
-        mods.append(conv_bn(in_ch, out_ch, 3, stride=s, eps=CONV_STACK_BN_EPS, leaky=True))
+        mods.append(conv_bn(in_ch, out_ch, 3, stride=s, eps=CONV_STACK_BN_EPS,
+                            momentum=CONV_STACK_BN_MOMENTUM, leaky=True))
         in_ch = out_ch
         if i in pool_after:
             mods.append(nn.MaxPool2d(2, 2))
@@ -135,7 +149,7 @@ def compute_corr_softmax(f1, f2):
 
 
 class PlaneCameraHead(nn.Module):
-    """PixelCameraHead + AIM + PlaneCamRefHead, inference branch."""
+    """PixelCameraHead + AIM + PlaneCamRefHead."""
 
     def __init__(self, image_size=(480, 640), num_queries: int = 50, cam_rec_on: bool = True,
                  cam_ref_on: bool = True, warp_plane_in_cam_ref_on: bool = True):
@@ -183,24 +197,29 @@ class PlaneCameraHead(nn.Module):
 
     # -- Arbitrary Initialization Module (pose auto-encoders) -------------
     def rot_rec(self, input_rot):
-        """Rotation auto-encoder on the sign-canonicalised input;
-        returns (pred_rot, rot_feat)."""
-        rot_feat = F.relu(self.rot_emb_proj(canonicalize_quat_sign(input_rot)))
-        return _nquat(self.rots(rot_feat)), rot_feat
+        """Rotation auto-encoder on the detached, sign-canonicalised input;
+        returns (pred_rot, rot_feat, that input)."""
+        input_rot = canonicalize_quat_sign(input_rot).detach()
+        rot_feat = F.relu(self.rot_emb_proj(input_rot))
+        return _nquat(self.rots(rot_feat)), rot_feat, input_rot
 
     def trans_rec(self, input_trans):
-        """Translation auto-encoder; returns (pred_trans, trans_feat)."""
-        trans_feat = F.relu(self.trans_emb_proj(input_trans + 1e-10))
-        return self.trans(trans_feat), trans_feat
+        """Translation auto-encoder on the detached input (+ 1e-10); returns
+        (pred_trans, trans_feat, that input)."""
+        input_trans = input_trans.detach() + 1e-10
+        trans_feat = F.relu(self.trans_emb_proj(input_trans))
+        return self.trans(trans_feat), trans_feat, input_trans
 
     # -- NOPE-SAC refinement ----------------------------------------------
     def refine(self, initial_trans_feat, initial_rot_feat, initial_trans, initial_rot,
-               geo_local, seq_valid, sig_seq, geo_global):
+               geo_local, seq_valid, sig_seq, geo_global, clamp_scores: bool = False):
         """One-plane pose hypotheses + scoring + soft/avg fusion.
 
         initial_*_feat [B, 256]; initial_trans [B, 3]; initial_rot [B, 4];
         geo_local/geo_global [B, M, 6]; seq_valid [B, M] bool; sig_seq [B, M, 1].
         Hypothesis h=0 is the initial pose, h=i+1 comes from match i.
+        clamp_scores (training) clips the hypothesis softmax to [0.01, 0.9]
+        and renormalises it.
         """
         b, max_n, _ = geo_local.shape
         dt = geo_local.dtype
@@ -249,7 +268,11 @@ class PlaneCameraHead(nn.Module):
         # ---- masked softmax over the valid hypotheses (dim 1)
         def masked_softmax(logit):
             logit = torch.where(hyp_valid[:, :, None], logit, logit.new_tensor(-float("inf")))
-            return torch.softmax(logit, dim=1) * mask_col0
+            s = torch.softmax(logit, dim=1)
+            if not clamp_scores:
+                return s * mask_col0
+            s = torch.clamp(s, 0.01, 0.9) * mask_col0
+            return s / (s.sum(dim=1, keepdim=True) + 1e-10)
 
         score_rot = masked_softmax(rot_score_logit)  # [B, M+1, 1]
         score_trans = masked_softmax(trans_score_logit)
@@ -269,6 +292,7 @@ class PlaneCameraHead(nn.Module):
             "score_rot": score_rot[..., 0],  # [B, M+1]
             "score_trans": score_trans[..., 0],
             "hyp_valid": hyp_valid,
+            "l2_dist": l2_dist,  # [B, M+1, M]
             "normal_l2_sum": normal_l2.sum(dim=-1),  # [B, M+1]
             "l2_dist_sum": (l2_dist * matching_mask).sum(dim=-1),
             "tran_soft": self.trans(fuse(fused_tran_feat, initial_trans_feat, score_trans, True)),

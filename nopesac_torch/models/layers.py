@@ -4,8 +4,9 @@
 Parameter names follow the reference torch checkpoint: d2 `Conv2d` with a
 `.norm` child, `Sequential(conv, bn, act)` conv-BN blocks (`.0`, `.1`), and
 `MLP.layers.{i}`. Norm epsilons follow the JAX package, not torch's
-defaults: FrozenBN and ConvBN's BN 1e-5, the camera ConvStack's BN 1e-3,
-LayerNorm and GroupNorm 1e-6 (the Flax defaults).
+defaults: FrozenBN and ConvBN's BN 1e-5 (momentum 0.9), the camera
+ConvStack's BN 1e-3 (momentum 0.99), LayerNorm and GroupNorm 1e-6 (the Flax
+defaults).
 """
 from __future__ import annotations
 
@@ -36,14 +37,23 @@ class FrozenBatchNorm2d(nn.Module):
         return x * mul[None, :, None, None] + add[None, :, None, None]
 
 
-class EvalBatchNorm2d(nn.Module):
-    """Trainable-BN layer of the reference, run with its running statistics
-    (inference only). Reads `num_batches_tracked` from a checkpoint and drops
-    it, so the reference's state_dict loads strictly."""
+class BatchNorm2d(nn.Module):
+    """Trainable-BN layer of the reference with Flax's `nn.BatchNorm`
+    semantics, not torch's.
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    In train mode it normalises with the batch statistics of x, whose
+    variance is the biased E[x^2] - E[x]^2 clipped at 0 (Flax's
+    `use_fast_variance`), and updates the running statistics as
+    ra = momentum * ra + (1 - momentum) * batch stat with that same variance
+    (torch's BatchNorm2d keeps the unbiased variance there). In eval mode it
+    uses the running statistics. The state_dict is the reference's (weight,
+    bias, running_mean, running_var); a checkpoint's `num_batches_tracked`
+    is read and dropped, so the reference's state_dict loads strictly."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -54,8 +64,17 @@ class EvalBatchNorm2d(nn.Module):
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def forward(self, x):
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean[None, :, None, None]) * mul[None, :, None, None] \
+        if self.training:
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[None, :, None, None]) * mul[None, :, None, None] \
             + self.bias[None, :, None, None]
 
 
@@ -83,15 +102,27 @@ def conv_gn(in_ch: int, out_ch: int, kernel_size: int, relu: bool = True) -> Con
 
 
 def conv_bn(in_ch: int, out_ch: int, kernel_size: int = 1, stride: int = 1,
-            eps: float = 1e-5, leaky: bool = False) -> nn.Sequential:
+            eps: float = 1e-5, momentum: float = 0.9, leaky: bool = False) -> nn.Sequential:
     """Sequential(Conv2d(bias=False), BatchNorm2d, ReLU | LeakyReLU(0.01))."""
     act = nn.LeakyReLU(0.01) if leaky else nn.ReLU()
     return nn.Sequential(
         nn.Conv2d(in_ch, out_ch, kernel_size, stride=stride, padding=kernel_size // 2,
                   bias=False),
-        EvalBatchNorm2d(out_ch, eps=eps),
+        BatchNorm2d(out_ch, eps=eps, momentum=momentum),
         act,
     )
+
+
+def dropout(x: torch.Tensor, p: float, gen) -> torch.Tensor:
+    """Flax `nn.Dropout`: keep each element with probability 1 - p and scale
+    the kept ones by 1 / (1 - p). The mask is drawn with `torch.bernoulli`
+    from `gen` (F.dropout takes no generator). The identity when `gen` is
+    None (eval) or p == 0."""
+    if gen is None or p == 0.0:
+        return x
+    keep = 1.0 - p
+    mask = torch.bernoulli(torch.full_like(x, keep), generator=gen)
+    return torch.where(mask > 0, x / keep, torch.zeros_like(x))
 
 
 class MLP(nn.Module):

@@ -6,7 +6,10 @@ checkpoint names under `matching_head.`).
     descriptor projection (1x1 Conv1d)
   * affinity = <d1, d2>/sqrt(256) - offset_dist/OFFSET_MULT - normal_dist/NORMAL_MULT,
     the geometric distances coming from warping view-0 planes by the input camera
-  * masked log-domain Sinkhorn with a learnable dustbin score, through kernel B2
+  * masked log-domain Sinkhorn with a learnable dustbin score: through kernel
+    B2 at inference; in training (`training=True`) through the plain
+    differentiable loop of `core/sinkhorn.py`, on every device, since B2 has
+    no backward
 
 Returns the padded [B, N+1, N+1] log-score matrix.
 """
@@ -20,6 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..core.geometry import normalize, warp_planes_identity, warp_planes_to_global
+from ..core import sinkhorn as plain_sinkhorn
 from ..ops.sinkhorn import log_optimal_transport_masked
 from .transformer import LocalFeatureGNN
 
@@ -64,7 +68,7 @@ class MatchingHead(nn.Module):
         return F.linear(x, conv.weight[:, :, 0], conv.bias)
 
     def forward(self, plane_app1, plane_app2, matcher_input_cam: Optional[torch.Tensor],
-                params1, params2, row_masks=None, col_masks=None):
+                params1, params2, row_masks=None, col_masks=None, training: bool = False):
         """plane_app1/2 [B, N, 256]; matcher_input_cam [B, 7] = (tran, quat)
         or None; params1/2 [B, N, 3]; row/col masks [B, N] bool."""
         b, n1, _ = plane_app1.shape
@@ -72,8 +76,10 @@ class MatchingHead(nn.Module):
         if matcher_input_cam is None:
             normal_dist = offset_dist = plane_app1.new_zeros((b, n1, n2))
         else:
-            normal_dist, offset_dist = geometric_distances(
-                params1, params2, matcher_input_cam[:, :3], matcher_input_cam[:, 3:])
+            # the geometric prior is a fixed bias, never a gradient path
+            with torch.no_grad():
+                normal_dist, offset_dist = geometric_distances(
+                    params1, params2, matcher_input_cam[:, :3], matcher_input_cam[:, 3:])
 
         desc1, desc2 = self.gnn(self._proj(self.planeApp_proj, plane_app1),
                                 self._proj(self.planeApp_proj, plane_app2),
@@ -84,5 +90,7 @@ class MatchingHead(nn.Module):
         log_scores = torch.matmul(desc1, desc2.transpose(1, 2)) / math.sqrt(self.d_model)
         log_scores = log_scores - offset_dist / self.offset_multiplier
         log_scores = log_scores - normal_dist / self.normal_multiplier
-        return log_optimal_transport_masked(log_scores, self.bin_score, self.sinkhorn_iterations,
-                                            row_masks=row_masks, col_masks=col_masks)
+        solve = (plain_sinkhorn.log_optimal_transport_masked if training
+                 else log_optimal_transport_masked)
+        return solve(log_scores, self.bin_score, self.sinkhorn_iterations,
+                     row_masks=row_masks, col_masks=col_masks)

@@ -1,14 +1,17 @@
-"""PlaneTR_NopeSAC meta-architecture, inference path (counterpart of the JAX
-package's `models/nopesac.py`): `detect`, `select_planes`, `inference` and
-`camera_inference`, fixed-shape and batched.
+"""PlaneTR_NopeSAC meta-architecture (counterpart of the JAX package's
+`models/nopesac.py`): `detect`, `select_planes`, `inference`,
+`camera_inference` and `train_forward`, fixed-shape and batched.
 
-Images come in already normalised, NCHW. `inference` returns the same dict
-(keys, shapes and dtypes) as the JAX `PlaneTRNopeSAC.inference`. Left out:
-the training forward and the `gt_geo` / `init_cam` ablations.
+`inference` takes normalised NCHW images and returns the same dict (keys,
+shapes and dtypes) as the JAX `PlaneTRNopeSAC.inference`. `train_forward`
+takes a collated training batch (NHWC images, as the JAX package's) and
+returns the same dict of weighted losses as the JAX `train_forward`. Left
+out: the `gt_geo` / `init_cam` ablations and the depth branch.
 """
 from __future__ import annotations
 
-from typing import Dict
+from dataclasses import dataclass
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -16,17 +19,60 @@ import torch.nn.functional as F
 
 from ..core.assignment import mutual_max_assignment
 from ..core.geometry import canonicalize_quat_sign, normalize
+from ..data.packing import unpack_targets
+from ..losses import camera_losses as CL
+from ..losses.criterion import detection_losses_siamese, match_planes_multi
+from ..losses.matching import build_pred_corr_matrix, intersect_with_valid, matching_nll_loss
 from ..ops.select import fused_select_maps
-from .camera_head import PlaneCameraHead, build_geo_sequence, compute_sig_seq, warp_geo_sequence
+from .camera_head import (
+    PlaneCameraHead,
+    build_geo_sequence,
+    build_gt_geo_sequence,
+    compute_sig_seq,
+    warp_geo_sequence,
+)
 from .matching_head import MatchingHead, geometric_distances
 from .plane_head import PlaneTRHead
 from .resnet import ResNet
 
 OUT_CAM_TYPES = ("avg-all", "soft", "max-score", "min-cost")
+AIM_RAND_POSES = 64  # random poses per step for the AIM auto-encoders (at least one per pair)
 
 
 def _split(d: Dict[str, torch.Tensor], sl: slice) -> Dict[str, torch.Tensor]:
     return {k: v[sl] for k, v in d.items()}
+
+
+@dataclass
+class TrainSettings:
+    """Loss switches and weights of `train_forward` (the JAX model's training
+    fields; `build_model_from_cfg` fills them from a config)."""
+
+    loss_detection_on: bool = True
+    loss_camera_on: bool = True
+    loss_matching_on: bool = True
+    matcher_on: bool = True
+    rand_on: bool = True
+    no_object_weight: float = 0.1
+    dice_weight: float = 1.0
+    mask_weight: float = 20.0
+    param_weight_l1: float = 0.25
+    param_weight_cos: float = 1.0
+    param_hm_weight_l1: float = 0.25
+    param_weight_q: float = 1.0
+    center_ins_weight: float = 0.5
+    param_weight_angle: float = 0.0028
+    param_weight_offset: float = 0.01
+    initial_cam_weight: float = 1.0
+    plane_cam_weight: float = 1.0
+    plane_cam_weight_predplane: float = 0.1
+
+    def match_cost_weights(self) -> Dict[str, float]:
+        """The weights of the Hungarian matcher's cost terms."""
+        return {"cost_class": 1.0, "cost_mask": self.mask_weight, "cost_dice": self.dice_weight,
+                "cost_center": self.center_ins_weight, "cost_param": self.param_hm_weight_l1,
+                "cost_param_offset": self.param_weight_offset,
+                "cost_param_normal_angle": self.param_weight_angle}
 
 
 class PlaneTRNopeSAC(nn.Module):
@@ -38,8 +84,10 @@ class PlaneTRNopeSAC(nn.Module):
                  offset_multiplier: float = 4.0, normal_multiplier: float = 8.0,
                  plane_score_threshold: float = 0.6, mask_prob_threshold: float = 0.5,
                  overlap_threshold: float = 0.6, matching_score_threshold: float = 0.2,
-                 inference_out_cam_type: str = "soft"):
+                 inference_out_cam_type: str = "soft", transformer_dropout: float = 0.1,
+                 train_settings: Optional[TrainSettings] = None):
         super().__init__()
+        self.train_settings = train_settings or TrainSettings()
         if inference_out_cam_type not in OUT_CAM_TYPES:
             raise ValueError(f"INFERENCE_OUT_CAM_TYPE must be one of {OUT_CAM_TYPES}, "
                              f"got {inference_out_cam_type!r}")
@@ -57,7 +105,7 @@ class PlaneTRNopeSAC(nn.Module):
         self.inference_out_cam_type = inference_out_cam_type
 
         self.backbone = ResNet()
-        self.sem_seg_head = PlaneTRHead(num_queries=num_queries)
+        self.sem_seg_head = PlaneTRHead(num_queries=num_queries, dropout=transformer_dropout)
         if embedding_on:
             self.matching_head = MatchingHead(offset_multiplier, normal_multiplier,
                                               sinkhorn_iterations)
@@ -69,11 +117,138 @@ class PlaneTRNopeSAC(nn.Module):
     def camera_head(self) -> PlaneCameraHead:
         return self.camera_head_list[0]
 
-    def detect(self, images):
-        """Single-view backbone + plane head; images [B, 3, H, W] normalised."""
+    def detect(self, images, gen: Optional[torch.Generator] = None):
+        """Backbone + plane head; images [B, 3, H, W] normalised. `gen`
+        drives the transformer's dropout (None: no dropout)."""
         feats = self.backbone(images)
-        outputs, query_feat = self.sem_seg_head(feats)
+        outputs, query_feat = self.sem_seg_head(feats, gen)
         return feats, outputs, query_feat
+
+    # ------------------------------------------------------------------
+    def train_forward(self, batch: Dict, gen: Optional[torch.Generator] = None,
+                      aim_rot: Optional[torch.Tensor] = None,
+                      aim_trans: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """Training forward: detection over every supervision level, matching
+        and the NOPE-SAC camera loss zoo; returns the dict of weighted scalar
+        losses. The model must be in train mode (batch-statistics BN).
+
+        batch: image0/image1 [B, H, W, 3] normalised f32, targets0/targets1
+        (wire format or unpacked), gt_pose [B, 7], corr_idx1/2 [B, NQ],
+        corr_valid [B, NQ]. `gen` (on the model's device) draws the dropout
+        masks and the AIM random poses; `aim_rot` [N, 4] / `aim_trans` [N, 3]
+        replace the random poses when given (N = B * max(AIM_RAND_POSES // B, 1)).
+
+        Both views run as one 2B batch, so trainable BN pools its statistics
+        over both views, as in the JAX package. All refinement branches run
+        as one K*B refine call.
+        """
+        if not self.training:
+            raise RuntimeError("train_forward needs the model in train mode (model.train())")
+        st = self.train_settings
+        losses: Dict[str, torch.Tensor] = {}
+        t0, t1 = unpack_targets(batch["targets0"]), unpack_targets(batch["targets1"])
+        b = batch["image0"].shape[0]
+        loss_weights = {
+            "loss_ce": 1.0, "loss_param_l1": st.param_weight_l1,
+            "loss_param_cos": st.param_weight_cos, "loss_q": st.param_weight_q,
+            "loss_center_ins": st.center_ins_weight, "loss_center_pixel": 1.0,
+            "loss_mask": st.mask_weight, "loss_dice": st.dice_weight,
+        }
+        images = torch.cat([batch["image0"], batch["image1"]]).permute(0, 3, 1, 2).contiguous()
+        targets = {k: torch.cat([t0[k], t1[k]]) for k in t0}
+        feats, out, qf = self.detect(images, gen)
+
+        # one host solve for the final and every aux supervision level
+        aux_list = list(out["aux_outputs"]) if st.loss_detection_on else []
+        matches = match_planes_multi([out] + aux_list, targets, st.match_cost_weights())
+        match = matches[0]
+        if st.loss_detection_on:
+            raw = detection_losses_siamese(out, targets, match, eos_coef=st.no_object_weight)
+            losses.update({k: v * loss_weights[k] for k, v in raw.items()})
+            for i, (aux, match_aux) in enumerate(zip(aux_list, matches[1:])):
+                raw = detection_losses_siamese(aux, targets, match_aux,
+                                               eos_coef=st.no_object_weight, aux=True)
+                losses.update({f"{k}_{i}": v * loss_weights[k] for k, v in raw.items()})
+
+        match0, match1 = match[:b], match[b:]
+        qf0, qf1 = qf[:b], qf[b:]
+        gt_pose = batch["gt_pose"]
+        params0, params1 = out["pred_params"][:b], out["pred_params"][b:]
+        corr = (batch["corr_idx1"], batch["corr_idx2"], batch["corr_valid"])
+
+        gt_corr = None
+        if self.embedding_on and st.matcher_on:
+            gt_corr = build_pred_corr_matrix(match0, match1, *corr, self.num_queries)
+            if st.loss_matching_on:
+                rows, cols = match0 >= 0, match1 >= 0
+                log_scores = self.matching_head(qf0, qf1, gt_pose, params0, params1,
+                                                row_masks=rows, col_masks=cols, training=True)
+                losses["losses_emb_0"] = matching_nll_loss(
+                    log_scores, intersect_with_valid(gt_corr, rows, cols))
+
+        if not (self.camera_on and st.loss_camera_on):
+            return losses
+        head = self.camera_head
+        init = head.pixel_camera(feats)
+        lt, lr = CL.camera_pose_loss(init["tran"], init["rot"], gt_pose)
+        losses["loss_tran_pixelReg"] = lt * st.initial_cam_weight
+        losses["loss_rot_pixelReg"] = lr * st.initial_cam_weight
+
+        # AIM: auto-encoding of the initial pose, then of random poses
+        if self.cam_rec_on:
+            rec_rot, rec_rot_feat, rot_in = head.rot_rec(init["rot"])
+            losses["loss_rot_initCamRec"] = CL.rot_rec_loss(rot_in, rec_rot)
+            rec_tran, rec_tran_feat, tran_in = head.trans_rec(init["tran"])
+            losses["loss_trans_initCamRec"] = CL.trans_rec_loss(tran_in, rec_tran)
+        if self.cam_rec_on and st.rand_on:
+            n = b * max(AIM_RAND_POSES // b, 1)
+            if (aim_rot is None or aim_trans is None) and gen is None:
+                raise ValueError("the AIM random poses need a generator or injected poses")
+            if aim_rot is None:
+                aim_rot = CL.rand_aim_rot(gen, n, images.device)
+            if aim_trans is None:
+                aim_trans = CL.rand_aim_trans(gen, n, images.device)
+            pr_rot, _, rin = head.rot_rec(aim_rot)
+            losses["loss_rot_randCamRecLBS_N1"] = CL.rot_rec_loss(rin, pr_rot)
+            pr_tr, _, tin = head.trans_rec(aim_trans)
+            losses["loss_trans_randCamRecLBS_N1"] = CL.trans_rec_loss(tin, pr_tr)
+
+        if not self.cam_ref_on:
+            return losses
+        geo_gt, valid_gt, num_gt = build_gt_geo_sequence(t0["gt_params"], t1["gt_params"], *corr)
+        branches = [dict(tran=init["tran"], rot=init["rot"], tf=init["tran_feat"],
+                         rf=init["rot_feat"], geo=geo_gt, valid=valid_gt, num=num_gt,
+                         suffix="initCamRef", weight=st.plane_cam_weight)]
+        if self.cam_rec_on:
+            branches.append(dict(tran=rec_tran, rot=rec_rot, tf=rec_tran_feat, rf=rec_rot_feat,
+                                 geo=geo_gt, valid=valid_gt, num=num_gt,
+                                 suffix="initRecCamRef", weight=st.plane_cam_weight))
+        if gt_corr is not None:
+            geo_pr, valid_pr, num_pr = build_geo_sequence(
+                params0, params1, gt_corr[:, :-1, :-1].to(params0.dtype), self.num_queries)
+            branches.append(dict(tran=init["tran"], rot=init["rot"], tf=init["tran_feat"],
+                                 rf=init["rot_feat"], geo=geo_pr, valid=valid_pr, num=num_pr,
+                                 suffix="initCamRef_Aux", weight=st.plane_cam_weight_predplane))
+            if self.cam_rec_on:
+                branches.append(dict(tran=rec_tran, rot=rec_rot, tf=rec_tran_feat,
+                                     rf=rec_rot_feat, geo=geo_pr, valid=valid_pr, num=num_pr,
+                                     suffix="initRecCamRef_Aux",
+                                     weight=st.plane_cam_weight_predplane))
+
+        def cat(key):
+            return torch.cat([br[key] for br in branches])
+
+        tran_c, rot_c, geo_c = cat("tran"), cat("rot"), cat("geo")
+        # the base pose is detached for the geo warp and the sign trick
+        geo_global = warp_geo_sequence(geo_c, tran_c.detach(), rot_c.detach())
+        sig_seq = compute_sig_seq(geo_c, tran_c.detach(), rot_c.detach())
+        ref = head.refine(cat("tf"), cat("rf"), tran_c, rot_c, geo_c, cat("valid"), sig_seq,
+                          geo_global, clamp_scores=True)
+        for k, br in enumerate(branches):
+            ref_k = {key: val[k * b:(k + 1) * b] for key, val in ref.items()}
+            losses.update(CL.refine_losses(ref_k, gt_pose, br["valid"], br["num"], br["suffix"],
+                                           br["weight"]))
+        return losses
 
     # ------------------------------------------------------------------
     def select_planes(self, outputs: Dict[str, torch.Tensor], out_h: int, out_w: int):
@@ -174,8 +349,8 @@ class PlaneTRNopeSAC(nn.Module):
         cameras["camera_init"] = {"tran": init_tran, "rot": init_rot}
 
         if self.cam_rec_on:
-            base_rot, base_rot_feat = head.rot_rec(init_rot)
-            base_tran, base_tran_feat = head.trans_rec(init_tran)
+            base_rot, base_rot_feat, _ = head.rot_rec(init_rot)
+            base_tran, base_tran_feat, _ = head.trans_rec(init_tran)
             cameras["camera_initRec"] = {"tran": base_tran, "rot": base_rot}
         else:
             base_rot, base_rot_feat = init_rot, init["rot_feat"]

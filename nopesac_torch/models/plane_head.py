@@ -1,9 +1,10 @@
-"""PlaneTR detection head, eval branch (counterpart of the JAX package's
+"""PlaneTR detection head (counterpart of the JAX package's
 `models/plane_head.py`; reference checkpoint names under `sem_seg_head.`).
 
   * sine pos-emb on res5 tokens, 1x1 input projection 2048 -> 256
   * 6-layer post-norm encoder, learned queries, 6-layer pre-norm decoder
-    (only the last layer's normed output feeds the heads at inference)
+    (the heads read the last layer's normed output at inference and the
+    last NUM_AUX layers' in training, for deep supervision)
   * `top_down` FPN pixel decoder (laterals res2..res5 + encoder memory inject)
   * mask logits = einsum(plane_embedding, pixel_embedding)
   * plane/no-plane classifier, plane-param MLP, plane-center MLP + pixel map
@@ -21,7 +22,7 @@ from .transformer import Decoder, Encoder
 
 class TopDown(nn.Module):
     """FPN-ish pixel decoder with encoder-memory injection; every lateral is
-    a 1x1 conv + eval BN + relu, and the 2x upsample is bilinear with
+    a 1x1 conv + BN + relu, and the 2x upsample is bilinear with
     align_corners=False."""
 
     def __init__(self, in_channels=(256, 512, 1024, 2048), channel: int = 256,
@@ -50,15 +51,17 @@ class TopDown(nn.Module):
 class PlaneTRHead(nn.Module):
     """Plane detection head producing class/mask/param/center predictions."""
 
+    NUM_AUX = 3  # decoder layers supervised in training (the last three)
+
     def __init__(self, num_queries: int = 50, hidden_dim: int = 256, nheads: int = 8,
                  enc_layers: int = 6, dec_layers: int = 6, num_classes: int = 1,
-                 mask_dim: int = 256, channel: int = 256):
+                 mask_dim: int = 256, channel: int = 256, dropout: float = 0.1):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.input_proj = nn.Conv2d(2048, hidden_dim, 1)
         self.query_embed = nn.Embedding(num_queries, hidden_dim)
-        self.context_SA = Encoder(hidden_dim, nheads, enc_layers)
-        self.context2plane_decoder = Decoder(hidden_dim, nheads, dec_layers)
+        self.context_SA = Encoder(hidden_dim, nheads, enc_layers, dropout=dropout)
+        self.context2plane_decoder = Decoder(hidden_dim, nheads, dec_layers, dropout=dropout)
         self.top_down = TopDown(channel=channel, m_dim=hidden_dim)
         self.plane_embedding = MLP(hidden_dim, hidden_dim, mask_dim, 3)
         self.plane_prob = nn.Linear(hidden_dim, num_classes + 1)
@@ -74,29 +77,35 @@ class PlaneTRHead(nn.Module):
             self._pos_cache[key] = sine_position_embedding(hc, wc, self.hidden_dim // 2).to(device)
         return self._pos_cache[key]
 
-    def forward(self, features: Dict[str, torch.Tensor]):
+    def forward(self, features: Dict[str, torch.Tensor], gen=None):
         """Returns (outputs, query features [B, Q, C]). outputs: pred_logits
         [B,Q,2], pred_mask_logits [B,Q,H/4,W/4], pred_params [B,Q,3],
-        pred_centers [B,Q,2], pixel_centers [B,2,H/4,W/4]."""
+        pred_centers [B,Q,2], pixel_centers [B,2,H/4,W/4]; in training also
+        aux_outputs, a list of the first three keys' dicts of the earlier
+        supervised decoder layers. `gen` drives the transformer's dropout."""
         c1, c2, c3, c4 = (features["res2"], features["res3"], features["res4"],
                           features["res5"])
         b, _, hc, wc = c4.shape
         pos = self._pos(hc, wc, c4.device)[None].expand(b, -1, -1)
         src = self.input_proj(c4).flatten(2).transpose(1, 2)  # [B, hc*wc, C], row-major
-        memory = self.context_SA(src, pos)
+        memory = self.context_SA(src, pos, gen)
 
         query_pos = self.query_embed.weight[None].expand(b, -1, -1)
-        hs = self.context2plane_decoder(torch.zeros_like(query_pos), memory, pos, query_pos)
+        hs = self.context2plane_decoder(torch.zeros_like(query_pos), memory, pos, query_pos, gen)
+        hs = hs[-self.NUM_AUX:] if self.training else hs[-1:]  # [L, B, Q, C]
 
         memory_map = memory.transpose(1, 2).reshape(b, self.hidden_dim, hc, wc)
         p_context = self.top_down(c1, c2, c3, c4, memory_map)
 
-        plane_emb = self.plane_embedding(hs)  # [B, Q, C]
+        plane_emb = self.plane_embedding(hs)  # [L, B, Q, C]
         pixel_emb = self.pixel_embedding(p_context)  # [B, C, H, W]
-        mask_logits = torch.einsum("bqc,bchw->bqhw", plane_emb, pixel_emb)
-
-        out = {"pred_logits": self.plane_prob(hs), "pred_mask_logits": mask_logits,
-               "pred_params": self.plane_param(hs),
-               "pred_centers": torch.sigmoid(self.plane_center(hs)),
-               "pixel_centers": torch.sigmoid(self.pixel_plane_center(p_context))}
-        return out, hs
+        heads = {"pred_logits": self.plane_prob(hs),
+                 "pred_mask_logits": torch.einsum("lbqc,bchw->lbqhw", plane_emb, pixel_emb),
+                 "pred_params": self.plane_param(hs),
+                 "pred_centers": torch.sigmoid(self.plane_center(hs))}
+        out = {k: v[-1] for k, v in heads.items()}
+        out["pixel_centers"] = torch.sigmoid(self.pixel_plane_center(p_context))
+        if self.training:
+            out["aux_outputs"] = [{k: v[i] for k, v in heads.items()}
+                                  for i in range(hs.shape[0] - 1)]
+        return out, hs[-1]

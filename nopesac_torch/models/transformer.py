@@ -4,7 +4,10 @@
 `self_attn`/`multihead_attn`, `linear1/2`, `norm1/2/3`; GNN `q_proj`,
 `k_proj`, `v_proj`, `merge`, `mlp.0`, `mlp.2`, `norm1/2`).
 
-Inference only: dropout is the identity. LayerNorm eps is 1e-6 (the Flax default).
+Dropout sits where the JAX package puts it (attention weights, both
+residual branches, the FFN's hidden layer) and draws its masks from the
+`gen` a training forward passes down; with `gen=None` it is the identity.
+LayerNorm eps is 1e-6 (the Flax default).
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import FLAX_NORM_EPS
+from .layers import FLAX_NORM_EPS, dropout
 
 
 class MultiheadAttention(nn.Module):
@@ -23,14 +26,15 @@ class MultiheadAttention(nn.Module):
     batch-first, logits = (q k^T) / sqrt(d_head) as the JAX package computes
     them."""
 
-    def __init__(self, d_model: int, nhead: int):
+    def __init__(self, d_model: int, nhead: int, dropout: float = 0.0):
         super().__init__()
         self.nhead = nhead
+        self.dropout = dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
 
-    def forward(self, q, k, v):
+    def forward(self, q, k, v, gen=None):
         b, lq, c = q.shape
         dh = c // self.nhead
         wq, wk, wv = self.in_proj_weight.chunk(3, dim=0)
@@ -39,7 +43,7 @@ class MultiheadAttention(nn.Module):
         kh = F.linear(k, wk, bk).reshape(b, -1, self.nhead, dh).transpose(1, 2)
         vh = F.linear(v, wv, bv).reshape(b, -1, self.nhead, dh).transpose(1, 2)
         logits = torch.matmul(qh, kh.transpose(-1, -2)) / math.sqrt(dh)  # [B, H, Lq, Lk]
-        attn = torch.softmax(logits, dim=-1)
+        attn = dropout(torch.softmax(logits, dim=-1), self.dropout, gen)
         out = torch.matmul(attn, vh).transpose(1, 2).reshape(b, lq, c)
         return self.out_proj(out)
 
@@ -47,73 +51,85 @@ class MultiheadAttention(nn.Module):
 class EncoderLayer(nn.Module):
     """Post-norm DETR encoder layer."""
 
-    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 1024):
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 1024,
+                 dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiheadAttention(d_model, nhead)
+        self.dropout = dropout
+        self.self_attn = MultiheadAttention(d_model, nhead, dropout)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=FLAX_NORM_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=FLAX_NORM_EPS)
 
-    def forward(self, src, pos):
+    def forward(self, src, pos, gen=None):
+        p = self.dropout
         qk = src + pos
-        src = self.norm1(src + self.self_attn(qk, qk, src))
-        ff = self.linear2(F.relu(self.linear1(src)))
-        return self.norm2(src + ff)
+        src = self.norm1(src + dropout(self.self_attn(qk, qk, src, gen), p, gen))
+        ff = self.linear2(dropout(F.relu(self.linear1(src)), p, gen))
+        return self.norm2(src + dropout(ff, p, gen))
 
 
 class Encoder(nn.Module):
     """Stack of post-norm encoder layers + a final LayerNorm."""
 
-    def __init__(self, d_model: int, nhead: int, num_layers: int, dim_feedforward: int = 1024):
+    def __init__(self, d_model: int, nhead: int, num_layers: int, dim_feedforward: int = 1024,
+                 dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList(
-            EncoderLayer(d_model, nhead, dim_feedforward) for _ in range(num_layers))
+            EncoderLayer(d_model, nhead, dim_feedforward, dropout) for _ in range(num_layers))
         self.norm = nn.LayerNorm(d_model, eps=FLAX_NORM_EPS)
 
-    def forward(self, src, pos):
+    def forward(self, src, pos, gen=None):
         for layer in self.layers:
-            src = layer(src, pos)
+            src = layer(src, pos, gen)
         return self.norm(src)
 
 
 class DecoderLayer(nn.Module):
     """Pre-norm DETR decoder layer."""
 
-    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 1024):
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 1024,
+                 dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiheadAttention(d_model, nhead)
-        self.multihead_attn = MultiheadAttention(d_model, nhead)
+        self.dropout = dropout
+        self.self_attn = MultiheadAttention(d_model, nhead, dropout)
+        self.multihead_attn = MultiheadAttention(d_model, nhead, dropout)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=FLAX_NORM_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=FLAX_NORM_EPS)
         self.norm3 = nn.LayerNorm(d_model, eps=FLAX_NORM_EPS)
 
-    def forward(self, tgt, memory, pos, query_pos):
+    def forward(self, tgt, memory, pos, query_pos, gen=None):
+        p = self.dropout
         t2 = self.norm1(tgt)
         qk = t2 + query_pos
-        tgt = tgt + self.self_attn(qk, qk, t2)
+        tgt = tgt + dropout(self.self_attn(qk, qk, t2, gen), p, gen)
         t2 = self.norm2(tgt)
-        tgt = tgt + self.multihead_attn(t2 + query_pos, memory + pos, memory)
+        tgt = tgt + dropout(self.multihead_attn(t2 + query_pos, memory + pos, memory, gen), p, gen)
         t2 = self.norm3(tgt)
-        return tgt + self.linear2(F.relu(self.linear1(t2)))
+        ff = self.linear2(dropout(F.relu(self.linear1(t2)), p, gen))
+        return tgt + dropout(ff, p, gen)
 
 
 class Decoder(nn.Module):
-    """Pre-norm decoder. At inference only the last layer's normed output
-    feeds the heads, so that is all it returns."""
+    """Pre-norm decoder returning every layer's output through the shared
+    final LayerNorm, [L, B, Q, C] (the heads read the last one at inference
+    and the last three in training)."""
 
-    def __init__(self, d_model: int, nhead: int, num_layers: int, dim_feedforward: int = 1024):
+    def __init__(self, d_model: int, nhead: int, num_layers: int, dim_feedforward: int = 1024,
+                 dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList(
-            DecoderLayer(d_model, nhead, dim_feedforward) for _ in range(num_layers))
+            DecoderLayer(d_model, nhead, dim_feedforward, dropout) for _ in range(num_layers))
         self.norm = nn.LayerNorm(d_model, eps=FLAX_NORM_EPS)
 
-    def forward(self, tgt, memory, pos, query_pos):
+    def forward(self, tgt, memory, pos, query_pos, gen=None):
+        inters = []
         for layer in self.layers:
-            tgt = layer(tgt, memory, pos, query_pos)
-        return self.norm(tgt)
+            tgt = layer(tgt, memory, pos, query_pos, gen)
+            inters.append(tgt)
+        return self.norm(torch.stack(inters))
 
 
 class GNNLayer(nn.Module):

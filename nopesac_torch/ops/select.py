@@ -18,7 +18,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ..utils.device import LAUNCHES
+from ..utils.device import LAUNCHES, refuse_autograd
 from . import _build
 
 STAT_NAMES = ("cnt_gate", "sumx_gate", "sumy_gate",
@@ -72,6 +72,7 @@ def select_maps_cuda(mask_prob: torch.Tensor, score: torch.Tensor, valid: torch.
                          f"{tuple(valid.shape)}")
     if not (score.device == dev and valid.device == dev):
         raise ValueError("prob, score and valid must lie on one device")
+    refuse_autograd(KERNEL, mask_prob, score)
     if out_h != 4 * h or out_w != 4 * w:
         raise ValueError(f"select kernel is compiled for the 4x upsample of every config; got "
                          f"{h}x{w} -> {out_h}x{out_w}")

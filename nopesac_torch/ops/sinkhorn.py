@@ -13,7 +13,7 @@ from typing import Optional
 import torch
 
 from ..core.sinkhorn import log_sinkhorn_iterations, masked_ot_prologue
-from ..utils.device import LAUNCHES
+from ..utils.device import LAUNCHES, refuse_autograd
 from . import _build
 
 KERNEL = "sinkhorn"
@@ -40,6 +40,7 @@ def sinkhorn_cuda(z: torch.Tensor, log_mu: torch.Tensor, log_nu: torch.Tensor,
                          f"{tuple(norm.shape)} for z {tuple(z.shape)}")
     if any(t.device != z.device for t in tensors):
         raise ValueError("sinkhorn inputs must lie on one device")
+    refuse_autograd(KERNEL, *tensors)
     z, log_mu, log_nu, norm = (t.contiguous() for t in tensors)
     out = torch.empty_like(z)
     fn = _build.load("sinkhorn").nopesac_sinkhorn

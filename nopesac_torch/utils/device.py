@@ -48,6 +48,15 @@ class LaunchCounters:
         return self._counts[name]
 
 
+def refuse_autograd(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise where a kernel without a backward would cut the graph: its
+    output carries no grad_fn, so a loss downstream would silently send no
+    gradient to what produced the inputs."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"the {kernel} kernel has no backward; call it under torch.no_grad() "
+                           f"or use its plain version where a gradient is needed")
+
+
 # the kernels of the port; each `ops/` wrapper bumps its own name
-KERNEL_NAMES = ("select_maps", "sinkhorn")
+KERNEL_NAMES = ("select_maps", "sinkhorn", "mask_loss_fwd", "mask_loss_bwd")
 LAUNCHES = LaunchCounters(KERNEL_NAMES)

@@ -18,6 +18,7 @@ from nopesac_tpu.ops.sinkhorn_pallas import log_optimal_transport_masked_pallas
 from nopesac_torch.core import assignment, geometry
 from nopesac_torch.core.sinkhorn import log_optimal_transport_masked
 from nopesac_torch.ops import _build, select, sinkhorn
+from torch_cpu import torch_threads  # noqa: F401  (CPU thread budget)
 
 GEO_TOL = 1e-6  # absolute, and relative for the warps (a few f32 ulps on O(1) values)
 OT_TOL = 1e-5       # plain loop vs lax loop, same algorithm and order

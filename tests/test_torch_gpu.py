@@ -1,5 +1,6 @@
 """On the card: each CUDA kernel against its plain PyTorch version. The eval
-step through the kernels is held against its CPU run by `chip_smoke.py`.
+and train steps through the kernels are held against their CPU runs by
+`chip_smoke.py`.
 
 These tests need a CUDA card and skip without one. They import neither JAX
 nor the JAX package, so they run where JAX is not installed:
@@ -12,12 +13,16 @@ import pytest
 import torch
 
 from nopesac_torch.core.sinkhorn import masked_ot_prologue
-from nopesac_torch.ops import select, sinkhorn
+from nopesac_torch.ops import mask_loss, select, sinkhorn
 from nopesac_torch.utils.device import LAUNCHES
 
 pytestmark = pytest.mark.gpu
 
 OT_KERNEL_TOL = 1e-4  # other reduction order and expf/logf ulps, compounded over 200 iterations
+# B3: f32 sums over up to 307200 pixels in another order than the plain
+# version's; the gradient is compared relative to its largest entry
+MASK_SUM_RTOL = 1e-4
+MASK_GRAD_TOL = 1e-4
 
 
 @pytest.fixture
@@ -75,3 +80,96 @@ def test_select_kernel_rejects_other_ratios(cuda):
     prob, score, valid = _select_inputs(cuda, 3, 2, 12, 24, 32)
     with pytest.raises(ValueError):
         select.fused_select_maps(prob, score, valid, 0.5, 48, 64)
+
+
+def test_sinkhorn_kernel_refuses_autograd(cuda):
+    scores = torch.randn((2, 8, 8), device=cuda, requires_grad=True)
+    z, mu, nu, norm = masked_ot_prologue(scores, torch.tensor(1.0, device=cuda), None, None)
+    with pytest.raises(RuntimeError, match="no backward"):
+        sinkhorn.sinkhorn_cuda(z, mu, nu, norm, 5)
+    with torch.no_grad():
+        z, mu, nu, norm = masked_ot_prologue(scores, torch.tensor(1.0, device=cuda), None, None)
+        assert torch.isfinite(sinkhorn.sinkhorn_cuda(z, mu, nu, norm, 5)).all()
+
+
+def mask_loss_inputs(dev, seed, b, nq, h, w, n_matched, grid=(3, 4)):
+    """Seeded logits with coarse structure, disjoint GT masks (a grid of
+    planes per view, ids shuffled), a random matching of n_matched queries
+    per view."""
+    rng = np.random.default_rng(seed)
+    coarse = rng.normal(0, 4, (b, nq, h // 4 + 1, w // 4 + 1)).astype(np.float32)
+    src = np.repeat(np.repeat(coarse, 4, axis=2), 4, axis=3)[:, :, :h, :w]
+    src = src + rng.normal(0, 1, (b, nq, h, w)).astype(np.float32)
+    gh, gw = 4 * h, 4 * w
+    n_planes = grid[0] * grid[1]
+    masks = np.zeros((b, nq, gh, gw), np.uint8)
+    for i in range(b):
+        ids = rng.permutation(n_planes)
+        for cell in range(n_planes):
+            r, c = divmod(cell, grid[1])
+            masks[i, ids[cell], r * gh // grid[0]:(r + 1) * gh // grid[0],
+                  c * gw // grid[1]:(c + 1) * gw // grid[1]] = 1
+    tgt = np.zeros((b, nq), np.int64)
+    matched = np.zeros((b, nq), bool)
+    for i in range(b):
+        q = rng.permutation(nq)[:n_matched]
+        tgt[i, q] = rng.permutation(n_planes)[:n_matched]
+        matched[i, q] = True
+    return (torch.from_numpy(src).to(dev), torch.from_numpy(masks).to(dev),
+            torch.from_numpy(tgt).to(dev), torch.from_numpy(matched).to(dev))
+
+
+def _mask_loss_both(src, masks, tgt, matched, weights):
+    """Sums and d src of the kernel (through autograd) and of the plain
+    version, for the loss sum(w0 * focal + w1 * inter + w2 * psum + w3 * tsum)."""
+    out = []
+    for fn in (mask_loss.fused_focal_dice, mask_loss.focal_dice_plain):
+        s = src.clone().requires_grad_(True)
+        sums = fn(s, masks, tgt, matched)
+        loss = sum((wk * v).sum() for wk, v in zip(weights, sums))
+        loss.backward()
+        out.append(([v.detach() for v in sums], s.grad))
+    return out
+
+
+@pytest.mark.parametrize("b,nq,h,w,n_matched", [(2, 50, 24, 32, 6), (32, 50, 120, 160, 12),
+                                                (4, 50, 24, 32, 1), (3, 50, 24, 32, 0)])
+def test_mask_loss_kernel_matches_plain(cuda, b, nq, h, w, n_matched):
+    src, masks, tgt, matched = mask_loss_inputs(cuda, 0, b, nq, h, w, n_matched)
+    before = (LAUNCHES["mask_loss_fwd"], LAUNCHES["mask_loss_bwd"])
+    (k_sums, k_grad), (p_sums, p_grad) = _mask_loss_both(src, masks, tgt, matched,
+                                                         (0.7, -0.3, 0.11, 0.5))
+    torch.cuda.synchronize()
+    assert (LAUNCHES["mask_loss_fwd"], LAUNCHES["mask_loss_bwd"]) == (before[0] + 1, before[1] + 1)
+    for k, p in zip(k_sums, p_sums):
+        torch.testing.assert_close(k, p, rtol=MASK_SUM_RTOL, atol=0)
+        assert (k[~matched] == 0).all()
+    assert (k_grad[~matched] == 0).all()
+    scale = float(p_grad.abs().max())
+    if n_matched == 0:
+        assert scale == 0 and float(k_grad.abs().max()) == 0
+    else:
+        assert float((k_grad - p_grad).abs().max()) <= MASK_GRAD_TOL * scale
+
+
+def test_mask_loss_kernel_is_deterministic(cuda):
+    src, masks, tgt, matched = mask_loss_inputs(cuda, 1, 32, 50, 120, 160, 12)
+    runs = [_mask_loss_both(src, masks, tgt, matched, (1.0, 1.0, 1.0, 0.0))[0] for _ in range(2)]
+    for a, b in zip(runs[0][0], runs[1][0]):
+        assert torch.equal(a, b)
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+def test_mask_loss_kernel_without_matched_computes_every_query(cuda):
+    src, masks, tgt, _ = mask_loss_inputs(cuda, 2, 2, 12, 24, 32, 12)
+    got = mask_loss.fused_focal_dice(src, masks, tgt)
+    ref = mask_loss.focal_dice_plain(src, masks, tgt)
+    for k, p in zip(got, ref):
+        torch.testing.assert_close(k, p, rtol=MASK_SUM_RTOL, atol=0)
+    assert (got[2] > 0).all()
+
+
+def test_mask_loss_kernel_rejects_other_ratios(cuda):
+    src, masks, tgt, matched = mask_loss_inputs(cuda, 3, 1, 12, 24, 32, 2)
+    with pytest.raises(ValueError, match="4x"):
+        mask_loss.fused_focal_dice(src[..., :16], masks, tgt, matched)

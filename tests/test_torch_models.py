@@ -15,6 +15,7 @@ from nopesac_tpu.models import camera_head as jcam
 
 from nopesac_torch.engine.predict import build_model_from_cfg
 from nopesac_torch.utils.weights import state_dict_from_jax
+from torch_cpu import torch_threads  # noqa: F401  (CPU thread budget)
 
 from test_torch_slice import CONFIG, H, W, _cfgs, perturb  # noqa: F401  (shared setup)
 

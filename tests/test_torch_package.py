@@ -1,6 +1,6 @@
 """Package rules of the port: it imports torch and never JAX, flax or the
 JAX package; its entry points default to CUDA; its config reads the repo's
-yaml files like the JAX package's does; its CLI runs on the CPU."""
+yaml files like the JAX package's does; its CLIs run on the CPU."""
 import json
 import os
 import pkgutil
@@ -8,6 +8,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -16,6 +17,7 @@ from nopesac_tpu.config.config import get_cfg as jax_get_cfg
 
 from nopesac_torch.config.config import get_cfg
 from nopesac_torch.utils.device import LAUNCHES, KERNEL_NAMES, resolve_device
+from torch_cpu import SUBPROCESS_ENV, torch_threads  # noqa: F401  (CPU thread budget)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "nopesac_torch")
@@ -35,7 +37,7 @@ def test_importing_every_module_loads_no_jax():
             "'nopesac_tpu'))\n"
             "print(len(sys.modules), bad)\n"
             "sys.exit(1 if bad else 0)\n")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env = SUBPROCESS_ENV
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -86,7 +88,7 @@ def test_config_copy_reads_repo_yamls_like_the_jax_package(config):
 
 
 def test_predict_cli_on_cpu():
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env = SUBPROCESS_ENV
     proc = subprocess.run(
         [sys.executable, "-m", "nopesac_torch.engine.predict",
          "--config-file", os.path.join(REPO, "configs", "inference_mp3d.yaml"),
@@ -101,3 +103,19 @@ def test_predict_cli_on_cpu():
     assert all(len(r["rot"]) == 4 and abs(sum(x * x for x in r["rot"]) - 1) < 1e-4
                for r in pairs)
     assert [r["pairs"] for r in rows if "batch" in r] == [2, 1]
+
+
+def test_train_cli_on_cpu():
+    env = SUBPROCESS_ENV
+    proc = subprocess.run(
+        [sys.executable, "-m", "nopesac_torch.engine.train",
+         "--config-file", os.path.join(REPO, "configs", "smoke_synthetic.yaml"),
+         "--device", "cpu", "--steps", "2", "--seed", "1", "INPUT.IMAGE_SIZE", "(64, 96)"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    rows = [json.loads(line) for line in proc.stdout.splitlines()]
+    assert [r["step"] for r in rows] == [0, 1]
+    for r in rows:
+        assert r["skipped_nonfinite"] == 0 and r["device"] == "cpu"
+        assert np.isfinite(r["total_loss"]) and np.isfinite(r["grad_norm"]) and r["grad_norm"] > 0
+        assert "losses_emb_0" in r["losses"] and "loss_mask_1" in r["losses"]

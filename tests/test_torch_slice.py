@@ -21,6 +21,7 @@ from nopesac_tpu.engine.trainer import build_model_from_cfg as jax_build_model
 from nopesac_torch.config.config import get_cfg
 from nopesac_torch.engine.predict import build_model_from_cfg, make_eval_step
 from nopesac_torch.utils.weights import state_dict_from_jax
+from torch_cpu import torch_threads  # noqa: F401  (CPU thread budget)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "inference_mp3d.yaml")

@@ -6,7 +6,9 @@ filled with seeded random values (shapes from `jax.eval_shape`, so nothing
 is compiled). The port's state_dict is saved to a .pth, read back through
 `import_torch_weights(..., return_report=True)`, and must give back every
 leaf bit for bit with no checkpoint tensor left unconsumed; the same
-state_dict must load strictly into the port's model.
+state_dict must load strictly into the port's model. A state_dict after a
+train step of the port (trained parameters, updated BN running statistics)
+makes the round trip torch -> JAX -> torch bit for bit.
 """
 import os
 
@@ -22,10 +24,13 @@ from nopesac_tpu.utils.torch_import import import_torch_weights
 
 from nopesac_torch.config.config import get_cfg
 from nopesac_torch.engine.predict import build_model_from_cfg
+from nopesac_torch.engine.train import TrainStep, build_train_model, synthetic_batches
 from nopesac_torch.utils.weights import state_dict_from_jax
+from torch_cpu import torch_threads  # noqa: F401  (CPU thread budget)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "inference_mp3d.yaml")
+SMOKE = os.path.join(REPO, "configs", "smoke_synthetic.yaml")
 H, W = 480, 640
 
 
@@ -88,3 +93,44 @@ def test_port_model_loads_strictly(state_dict):
     w = state_dict["camera_head_list.0.fc_trans.weight"]
     assert tuple(w.shape) == (256, 128 * 2 * 3)
     assert torch.equal(model.camera_head.fc_trans.weight, w)
+
+
+def test_round_trip_after_a_train_step(trees, tmp_path):
+    """One train step of the port at 96x128 (one pair) changes the parameters
+    and the trainable BN running statistics; every tensor of the step's
+    state_dict goes into a 480x640 model (the first conv of the two pose
+    stacks and the two fc layers, whose widths depend on the image size, keep
+    their seeded values) and through
+    import_torch_weights and state_dict_from_jax back, bit for bit."""
+    cfg = get_cfg()
+    cfg.merge_from_file(SMOKE)
+    cfg.merge_from_list(["SOLVER.IMS_PER_BATCH", "1"])
+    small = build_train_model(cfg, device="cpu", seed=1)
+    before = {k: v.clone() for k, v in small.state_dict().items()}
+    metrics = TrainStep(small, cfg, seed=0)(next(iter(synthetic_batches(cfg, 1, seed=2,
+                                                                        device="cpu"))))
+    assert float(metrics["skipped_nonfinite"]) == 0.0
+    trained = small.state_dict()
+    changed = [k for k, v in trained.items() if not torch.equal(v, before[k])]
+    assert any(k.endswith(".1.running_var") for k in changed)
+    assert any(k.startswith("backbone.") for k in changed)
+
+    full_cfg = get_cfg()
+    full_cfg.merge_from_file(CONFIG)
+    full = build_model_from_cfg(full_cfg, device="cpu", seed=1).state_dict()
+    for k, v in trained.items():
+        if v.shape == full[k].shape:
+            full[k] = v.clone()
+    kept = sorted(k for k in full if not torch.equal(full[k], trained[k]))
+    assert kept == [f"camera_head_list.0.{m}.weight" for m in (
+        "convs_rots.0.0", "convs_trans.0.0", "fc_rots", "fc_trans")], kept
+    path = tmp_path / "trained.pth"
+    torch.save({"model": full}, path)
+    zeros = jax.tree_util.tree_map(np.zeros_like, trees)
+    params, stats, report = import_torch_weights(zeros[0], str(path), batch_stats=zeros[1],
+                                                 return_report=True)
+    assert report["unconsumed"] == []
+    back = state_dict_from_jax(params, stats, image_size=(H, W))
+    assert sorted(back) == sorted(full)
+    for k, v in full.items():
+        assert torch.equal(back[k], v), k
