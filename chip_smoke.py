@@ -39,21 +39,46 @@ Phases, in order; any failure exits non-zero before the last line:
      on the card and on the CPU from the same weights and batch: the match
      of every supervision level equal, every loss within max(1e-4, 1e-3
      relative), the gradient norm within 1e-3 relative, the parameters
-     after the AdamW step within 1e-5 relative (norm over the model).
-Phases 6 and 7 hold the card to the CPU as the CPU is held to JAX in
-tests/test_torch_slice.py: valid planes equal, labels agree on >= 99.9% of
-pixels, log-scores within 1.5e-3 and every camera within 1e-3; phase 10 does
-the same with the tolerances of tests/test_torch_train.py.
+     after the AdamW step within 1e-5 relative (norm over the model);
+ 11. B4 (bottleneck_tail) at the eight shapes of the fused-tail eval path
+     (8 images of 480x640: res2..res5, conv1 Cin -> Cout/4 with ReLU, conv3
+     Cout/4 -> Cout with the residual and ReLU), f32, kernel against its
+     plain version within 1e-5 of max |ref|; bf16 at the JAX test's shape
+     (B 2, P 300, 64 -> 256, with and without residual and ReLU) and at
+     res2's conv3, within one bf16 ulp of it (2^-7 |ref| + 1e-6);
+     times beside the unfused sequence the backbone runs without B4 (cuDNN
+     1x1 conv, then the ATen affine, add and ReLU);
+ 12. fused-tail eval path: the phase-5 model and batches with
+     `fuse_tail=True`: B4's counter rises by exactly 24 per batch (12
+     identity blocks, two calls each), res2..res5 match the unfused backbone
+     within 1e-4 of max |ref|, the outputs match phase 5's at the limits of
+     phases 6 and 7, and the two eval steps are timed in alternating rounds;
+ 13. the evaluation entry point (`engine/test.py`) at full width on 16
+     synthetic pairs of 12 planes per view from the port's generator,
+     inference_mp3d.yaml with the fused-tail backbone and
+     TEST.EVAL_FULL_SCENE: the metrics of tests/test_end_to_end.py present
+     and finite, both artifacts written under output/ and readable,
+     the B1/B2/B4 counters at one/one/24 per batch; the host postprocess
+     timed per pair on the main path's and the planar scene's outputs.
+Phases 11-13 run right after phase 7, while the eval model is on the card.
+Phases 6, 7 and 12 hold the card to the CPU, or the fused path to the
+unfused one, as the CPU is held to JAX in tests/test_torch_slice.py: valid
+planes equal, labels agree on >= 99.9% of pixels, log-scores within 1.5e-3
+and every camera within 1e-3; phase 10 does the same with the tolerances of
+tests/test_torch_train.py.
 Then one JSON line with every kernel's launches, error and times, and, last,
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The launches of B1 and B2 are those of the eval path (phase 5), those of B3
-those of the train path (phase 9).
+those of the train path (phase 9), those of B4 those of the fused-tail eval
+path (phase 12). B4's times are per eval batch: the sum over its 24 calls.
 
 Kernel times are CUDA-event means over many warm launches. `bound_ms` is the
 larger of bytes moved / 3.35 TB/s and f32 operations / 67 TFLOP/s (H100 SXM
 published peaks).
 """
+import copy
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -81,6 +106,14 @@ MASK_FWD_OPS = 39
 MASK_BWD_OPS = 55
 LOSS_ABS, LOSS_REL = 1e-4, 1e-3  # tests/test_torch_train.py
 MATCH_GAP = 1e-3
+# B4 at 480x640 with 8 images (4 pairs, both views): per stage the map size,
+# the block's width and bottleneck width, and its identity blocks
+B4_STAGES = (("res2", 120, 160, 256, 64, 2), ("res3", 60, 80, 512, 128, 3),
+             ("res4", 30, 40, 1024, 256, 5), ("res5", 15, 20, 2048, 512, 2))
+B4_LAUNCHES = 2 * sum(s[-1] for s in B4_STAGES)  # 24 per eval batch
+B4_F32_TOL = 1e-5  # of max |ref|: f32 sums over Cin in another order
+BF16_ULP = 2.0 ** -7
+ENTRY_PAIRS = 16
 
 
 class SmokeFailure(Exception):
@@ -299,10 +332,11 @@ def run_main_path(torch, dev, card):
     print(f"[main] {ms:.2f} ms/batch of {N_PAIRS} pairs, {N_PAIRS * N_BATCHES / secs:.2f} pairs/s "
           f"on {card}; launches {counts}; valid planes per view {planes}; matches per pair "
           f"{[int(x) for o in outs for x in o['num_matches']]}")
-    want = {"select_maps": N_BATCHES, "sinkhorn": N_BATCHES, "mask_loss_fwd": 0, "mask_loss_bwd": 0}
+    want = {"select_maps": N_BATCHES, "sinkhorn": N_BATCHES, "mask_loss_fwd": 0, "mask_loss_bwd": 0,
+            "bottleneck_tail": 0}
     if counts != want:
         raise SmokeFailure(f"eval path launches {counts}, want {want}")
-    return counts, model, batches[0]
+    return counts, model, batches, outs, ms
 
 
 def planar_scene(torch, b, nq, h, w, seed, grid=(3, 4)):
@@ -335,24 +369,32 @@ def planar_scene(torch, b, nq, h, w, seed, grid=(3, 4)):
     return outputs, torch.cat([qf0, noisy(qf0[:, perm], 0.1)]), k
 
 
-def compare_with_cpu(torch, ref, got, what):
-    """The card's outputs against the CPU's, at the slice's tolerances."""
+def compare_with_cpu(torch, ref, got, what, versus="card vs CPU"):
+    """Eval outputs `got` against `ref` (both moved to the CPU), at the
+    slice's tolerances."""
+    ref, got = to_host(ref), to_host(got)
     errs = {}
     for view in ("view0", "view1"):
-        if not torch.equal(got[view]["valid"].cpu(), ref[view]["valid"]):
-            raise SmokeFailure(f"{what}, {view}: valid planes differ between the card and the CPU")
+        if not torch.equal(got[view]["valid"], ref[view]["valid"]):
+            raise SmokeFailure(f"{what}, {view}: valid planes differ ({versus})")
         errs[f"{view}.seg_agree"] = float(
-            (got[view]["seg_gated"].cpu() == ref[view]["seg_gated"]).float().mean())
-    if not torch.equal(got["num_matches"].cpu(), ref["num_matches"]):
-        raise SmokeFailure(f"{what}: the number of matches differs between the card and the CPU")
+            (got[view]["seg_gated"] == ref[view]["seg_gated"]).float().mean())
+    if not torch.equal(got["num_matches"], ref["num_matches"]):
+        raise SmokeFailure(f"{what}: the number of matches differs ({versus})")
     keep = ref["log_scores"].abs() < 1e4
-    errs["log_scores"] = float((got["log_scores"].cpu() - ref["log_scores"]).abs()[keep].max())
-    errs["cameras"] = max(float((got["cameras"][c][k].cpu() - v).abs().max())
+    errs["log_scores"] = float((got["log_scores"] - ref["log_scores"]).abs()[keep].max())
+    errs["cameras"] = max(float((got["cameras"][c][k] - v).abs().max())
                           for c, d in ref["cameras"].items() for k, v in d.items())
-    print(f"[{what}] card vs CPU: {errs}")
+    print(f"[{what}] {versus}: {errs}")
     if (min(errs["view0.seg_agree"], errs["view1.seg_agree"]) < 0.999
             or not errs["log_scores"] <= 1.5e-3 or not errs["cameras"] <= 1e-3):
-        raise SmokeFailure(f"{what}: the card disagrees with the CPU reference")
+        raise SmokeFailure(f"{what}: outputs disagree ({versus})")
+
+
+def to_host(tree):
+    if isinstance(tree, dict):
+        return {k: to_host(v) for k, v in tree.items()}
+    return tree.cpu()
 
 
 def run_planar_scene(torch, dev, model, images, card):
@@ -386,6 +428,7 @@ def run_planar_scene(torch, dev, model, images, card):
         ref = cpu_model.inference_from_detections(
             {key: v.cpu() for key, v in feats.items()}, outputs, qf, h, w)
     compare_with_cpu(torch, ref, got, "planar")
+    return got
 
 
 def check_small_reference(torch, dev):
@@ -522,8 +565,6 @@ def module_grad_norms(torch, model):
 
 
 def run_train_path(torch, dev, card):
-    import math
-
     from nopesac_torch.engine.train import TrainStep, build_train_model, synthetic_batches
     from nopesac_torch.utils.device import LAUNCHES
 
@@ -571,7 +612,7 @@ def run_train_path(torch, dev, card):
           f"{TRAIN_PAIRS / ms * 1e3:.2f} pairs/s, peak memory {peak / 2**30:.2f} GiB "
           f"(max_memory_allocated) on {card}; launches {counts}")
     want = {"mask_loss_fwd": 3 * TRAIN_STEPS, "mask_loss_bwd": 3 * TRAIN_STEPS,
-            "select_maps": 0, "sinkhorn": 0}
+            "select_maps": 0, "sinkhorn": 0, "bottleneck_tail": 0}
     if counts != want:
         raise SmokeFailure(f"train path launches {counts}, want {want}")
     return counts
@@ -625,8 +666,6 @@ def assignment_gap(cost, n_gt):
 
 
 def check_train_reference(torch, dev):
-    import copy
-
     from nopesac_torch.engine.train import TrainStep, build_train_model, synthetic_batches
     from nopesac_torch.losses import camera_losses
     from nopesac_torch.models.nopesac import AIM_RAND_POSES
@@ -680,6 +719,244 @@ def check_train_reference(torch, dev):
         raise SmokeFailure(f"train reference: the card disagrees with the CPU: {bad}")
 
 
+def b4_inputs(torch, dev, seed, b, cin, cout, h, w, residual, dtype=None):
+    """Post-ReLU activations, a He-initialised 1x1 conv weight, a folded
+    FrozenBN affine and a residual, seeded on the host."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, cin, h, w), generator=gen).abs()
+    wt = torch.randn((cout, cin, 1, 1), generator=gen) * (2.0 / cin) ** 0.5
+    scale = torch.rand(cout, generator=gen) + 0.5
+    shift = torch.randn(cout, generator=gen) * 0.1
+    res = torch.randn((b, cout, h, w), generator=gen) if residual else None
+    dtype = dtype or torch.float32
+    return (x.to(dev, dtype), wt.to(dev), scale.to(dev), shift.to(dev),
+            None if res is None else res.to(dev, dtype))
+
+
+def b4_cost(b, cin, cout, p, residual, elem=4):
+    """Bytes (x, W, scale, shift, residual read once, y written once) and
+    operations (the product and the epilogue: scale, shift, add, max)."""
+    n_bytes = elem * (b * cin * p + cout * cin + b * cout * p * (2 if residual else 1)) + 8 * cout
+    n_ops = b * p * cout * (2 * cin + 3 + (1 if residual else 0))
+    return n_bytes, n_ops
+
+
+def check_bottleneck(torch, dev, card):
+    from nopesac_torch.ops import bottleneck
+
+    F = torch.nn.functional
+    b = 2 * N_PAIRS
+    rows, total = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "unfused_ms": 0.0}
+    by_count = {"bytes": 0, "operations": 0}
+    worst = 0.0
+    for stage, h, w, cout, mid, n_blocks in B4_STAGES:
+        for cin, co, residual in ((cout, mid, False), (mid, cout, True)):
+            x, wt, scale, shift, res = b4_inputs(torch, dev, len(rows), b, cin, co, h, w, residual)
+            got = bottleneck.conv1x1_bn_act_cuda(x, wt, scale, shift, residual=res)
+            ref = bottleneck.conv1x1_bn_act_plain(x, wt, scale, shift, residual=res)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            rel = err / float(ref.abs().max())
+            worst = max(worst, err)
+            if not rel <= B4_F32_TOL:
+                raise SmokeFailure(f"B4 kernel disagrees with its plain version at {stage} "
+                                   f"{cin}->{co}: max |diff| {err:.3e} ({rel:.3e} of max |ref|)")
+
+            def unfused():  # models/resnet.py without B4: ConvNorm, then add and ReLU
+                y = F.conv2d(x, wt) * scale[None, :, None, None] + shift[None, :, None, None]
+                return F.relu(y + res) if residual else F.relu(y)
+
+            ms = cuda_ms(torch, lambda: bottleneck.conv1x1_bn_act_cuda(
+                x, wt, scale, shift, residual=res), iters=20)
+            plain_ms = cuda_ms(torch, lambda: bottleneck.conv1x1_bn_act_plain(
+                x, wt, scale, shift, residual=res), warm=2, iters=5)
+            unfused_ms = cuda_ms(torch, unfused, iters=20)
+            bms, by = bound_ms(*b4_cost(b, cin, co, h * w, residual))
+            rows.append({"shape": f"{stage} {cin}->{co}{' +res' if residual else ''}",
+                         "P": b * h * w, "ms": ms, "plain_ms": plain_ms, "unfused_ms": unfused_ms,
+                         "bound_ms": bms, "bound_by": by, "max_rel_err": rel})
+            print(f"[B4 bottleneck_tail] {rows[-1]['shape']} (P {b * h * w}, x{n_blocks} per "
+                  f"batch): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, unfused cuDNN+ATen "
+                  f"{unfused_ms:.4f} ms, bound {bms:.4f} ms ({by}); max |diff| {err:.3e} "
+                  f"({rel:.2e} of max |ref|)")
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("unfused_ms", unfused_ms),
+                           ("bound_ms", bms)):
+                total[key] += n_blocks * v
+            by_count[by] += n_blocks
+            del x, wt, res, got, ref
+    # bf16: the JAX test's shape (P 300, not a multiple of the 128-pixel tile)
+    # and res2's conv3; within one bf16 ulp of the plain output
+    bf16_rel = 0.0
+    for bb, cin, co, h, w, residual, relu in ((2, 64, 256, 15, 20, True, True),
+                                              (2, 64, 256, 15, 20, False, False),
+                                              (b, 64, 256, 120, 160, True, True)):
+        x, wt, scale, shift, res = b4_inputs(torch, dev, 100 + cin, bb, cin, co, h, w, residual,
+                                             torch.bfloat16)
+        got = bottleneck.conv1x1_bn_act_cuda(x, wt, scale, shift, residual=res, relu=relu).float()
+        ref = bottleneck.conv1x1_bn_act_plain(x, wt, scale, shift, residual=res, relu=relu).float()
+        torch.cuda.synchronize()
+        diff, lim = (got - ref).abs(), BF16_ULP * ref.abs() + 1e-6
+        over = int((diff > lim).sum())
+        ulps = float((diff / lim).max())
+        bf16_rel = max(bf16_rel, ulps)
+        print(f"[B4 bottleneck_tail] bf16 [{bb}, {cin}, {h * w}] -> {co}, residual {residual}, "
+              f"relu {relu}: max |diff| {float(diff.max()):.3e}, max |diff| / (2^-7 |ref| + "
+              f"1e-6) {ulps:.3f}; {over} of {diff.numel()} outside")
+        if over:
+            raise SmokeFailure("B4 kernel (bf16) disagrees with its plain version")
+    by = "bytes" if by_count["bytes"] > by_count["operations"] else "operations"
+    print(f"[B4 bottleneck_tail] per eval batch ({B4_LAUNCHES} calls): kernel {total['ms']:.4f} "
+          f"ms, plain {total['plain_ms']:.4f} ms, unfused cuDNN+ATen {total['unfused_ms']:.4f} "
+          f"ms, bound {total['bound_ms']:.4f} ms, on {card}")
+    return {"name": "bottleneck_tail", "route": "cuda",
+            "source": "nopesac_torch/ops/csrc/bottleneck.cu",
+            "replaces": "nopesac_tpu/ops/bottleneck_pallas.py:88", "max_abs_err": worst,
+            "ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
+            "bound_by": by, "library_ms": None, "unfused_ms": total["unfused_ms"],
+            "bf16_max_diff_over_limit": bf16_rel, "per_shape": rows}
+
+
+def run_fused_path(torch, dev, model, batches, outs, card):
+    from nopesac_torch.engine.predict import build_model_from_cfg, make_eval_step
+    from nopesac_torch.utils.device import LAUNCHES
+
+    cfg = load_cfg()
+    h, w = cfg.INPUT.IMAGE_SIZE
+    nq = cfg.MODEL.SEM_SEG_HEAD.NUM_OBJECT_QUERIES
+    fused = build_model_from_cfg(cfg, device=dev, fuse_tail=True)
+    fused.load_state_dict(model.state_dict(), strict=True)
+    mean = torch.tensor(cfg.MODEL.PIXEL_MEAN, device=dev)
+    std = torch.tensor(cfg.MODEL.PIXEL_STD, device=dev)
+    x = ((torch.cat(batches[1]).float() - mean) / std).permute(0, 3, 1, 2).contiguous()
+    # the seeded weights leave every FrozenBN at its identity statistics
+    # (shift 0); copies of both backbones with trained-like statistics also
+    # exercise B4's epilogue
+    backbones = {"seeded": (fused.backbone, model.backbone),
+                 "BN statistics": tuple(copy.deepcopy(m.backbone) for m in (fused, model))}
+    gen = torch.Generator().manual_seed(6)
+    for name, buf in backbones["BN statistics"][0].state_dict().items():
+        if buf.dim() == 1:
+            new = (torch.rand(buf.shape, generator=gen) + 0.5 if name.endswith(("weight", "var"))
+                   else torch.randn(buf.shape, generator=gen) * 0.1)
+            for bb in backbones["BN statistics"]:
+                bb.state_dict()[name].copy_(new.to(dev))
+    for what, (fb, ub) in backbones.items():
+        with torch.inference_mode():
+            feats, ref = fb(x), ub(x)
+        errs = {k: float((feats[k] - r).abs().max()) / float(r.abs().max()) for k, r in ref.items()}
+        print(f"[fused] res2..res5 fused vs unfused on the card ({what}), max |diff| / max |ref|: "
+              f"{errs}")
+        if not all(e <= 1e-4 for e in errs.values()):
+            raise SmokeFailure("the fused-tail backbone disagrees with the unfused one")
+    del backbones, feats, ref
+    step = make_eval_step(fused, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
+    plain_step = make_eval_step(model, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
+    with torch.inference_mode():
+        step(*batches[0])  # warm-up
+        torch.cuda.synchronize()
+        LAUNCHES.reset()
+        t0 = time.perf_counter()
+        fused_outs = [step(*pair) for pair in batches[1:]]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = LAUNCHES.snapshot()
+        want = {"select_maps": N_BATCHES, "sinkhorn": N_BATCHES, "mask_loss_fwd": 0,
+                "mask_loss_bwd": 0, "bottleneck_tail": B4_LAUNCHES * N_BATCHES}
+        print(f"[fused] {secs / N_BATCHES * 1e3:.2f} ms/batch of {N_PAIRS} pairs (wall), "
+              f"launches {counts}")
+        if counts != want:
+            raise SmokeFailure(f"fused-tail eval path launches {counts}, want {want}")
+        for k, (o, r) in enumerate(zip(fused_outs, outs)):
+            check_outputs(torch, o, N_PAIRS, h, w, nq)
+            compare_with_cpu(torch, r, o, f"fused batch {k}", versus="fused vs unfused")
+        fused_ms, plain_ms = alternating_ms(torch, [lambda: step(*batches[1]),
+                                                    lambda: plain_step(*batches[1])])
+    print("[fused] eval step, median (min-max) ms per batch over 10 alternating rounds: fused "
+          "tail {:.2f} ({:.2f}-{:.2f}), unfused {:.2f} ({:.2f}-{:.2f}), on {}".format(
+              *fused_ms, *plain_ms, card))
+    return counts, fused
+
+
+def run_entry_point(torch, dev, fused, planar_out, card):
+    import pickle
+
+    from nopesac_torch.config.config import get_cfg
+    from nopesac_torch.data.synthetic import make_dataset
+    from nopesac_torch.engine.predict import make_eval_step, synthetic_pairs
+    from nopesac_torch.engine.test import EvalRunner
+    from nopesac_torch.evaluation.postprocess import postprocess_batch
+    from nopesac_torch.utils.device import LAUNCHES
+
+    out_dir = os.path.join(REPO, "output", "eval_entry_point")
+    cfg = get_cfg()
+    cfg.merge_from_file(CONFIG)
+    cfg.merge_from_list(["MODEL.WEIGHTS", "", "TEST.EVAL_FULL_SCENE", "True",
+                         "DATASETS.TEST", '("synthetic_test",)', "OUTPUT_DIR", out_dir])
+    cfg.freeze()
+    h, w = cfg.INPUT.IMAGE_SIZE
+    for name in ("NopeSAC_instances_predictions.pth", "continuous.pkl", "siamese2coco.json"):
+        if os.path.exists(os.path.join(out_dir, name)):
+            os.remove(os.path.join(out_dir, name))
+    t0 = time.perf_counter()
+    pairs = make_dataset(n_pairs=ENTRY_PAIRS, n_planes=TRAIN_PLANES, seed=11, h=h, w=w)
+    print(f"[entry] {ENTRY_PAIRS} synthetic pairs of {h}x{w}, {TRAIN_PLANES} planes per view, "
+          f"made in {time.perf_counter() - t0:.2f} s")
+    runner = EvalRunner(cfg, fused)
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    results = runner.test(dataset_list=pairs)
+    secs = time.perf_counter() - t0
+    counts = LAUNCHES.snapshot()
+    n_batches = ENTRY_PAIRS // N_PAIRS
+    want = {"select_maps": n_batches, "sinkhorn": n_batches, "mask_loss_fwd": 0,
+            "mask_loss_bwd": 0, "bottleneck_tail": B4_LAUNCHES * n_batches}
+    print(f"[entry] EvalRunner.test: last_eval_stats {runner.last_eval_stats}, with evaluate() "
+          f"{secs:.2f} s, launches {counts}, on {card}")
+    if counts != want:
+        raise SmokeFailure(f"entry point launches {counts}, want {want}")
+    keys = ("T median err", "R median err", "T err < 1.0", "R err < 30", "mask_ap@0.5",
+            "plane_ap@iou0.5normal30.0offset0.3", "precision", "recall")
+    missing = [k for k in keys if k not in results]
+    bad = [k for k, v in results.items() if not math.isfinite(float(v))]
+    print(f"[entry] metrics: { {k: round(float(results[k]), 4) for k in keys if k in results} }")
+    if missing or bad:
+        raise SmokeFailure(f"entry point metrics missing {missing}, not finite {bad}")
+    preds = torch.load(os.path.join(out_dir, "NopeSAC_instances_predictions.pth"),
+                       weights_only=False)
+    with open(os.path.join(out_dir, "continuous.pkl"), "rb") as f:
+        cont = pickle.load(f)
+    cont_keys = {"n_corr", "cost", "best_camera", "gt_camera", "best_assignment",
+                 "plane_param_override", "image_ids"}
+    if (len(preds) != ENTRY_PAIRS or len(cont) != ENTRY_PAIRS or set(cont[0]) != cont_keys
+            or not isinstance(preds[0]["0"]["pred_plane"], torch.Tensor)
+            or not preds[0]["0"]["instances"]):
+        raise SmokeFailure("entry point artifacts do not have the contract's shape")
+    print(f"[entry] artifacts: {len(preds)} predictions, continuous.pkl keys {sorted(cont[0])}")
+
+    # the host postprocess per pair: the main path's regime (one plane per
+    # view with random weights) and the planar scene's (12 per view)
+    metas = [{"image_id0": f"a{i}", "image_id1": f"b{i}"} for i in range(N_PAIRS)]
+    step = make_eval_step(fused, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
+    with torch.inference_mode():
+        main_out = step(*synthetic_pairs(N_PAIRS, h, w, seed=12, device=dev))
+    for what, out in (("main path", main_out), ("planar scene", planar_out)):
+        host = numpy_tree(out)
+        postprocess_batch(host, metas, h, w)  # warm
+        t0 = time.perf_counter()
+        for _ in range(5):
+            res = postprocess_batch(host, metas, h, w)
+        ms = (time.perf_counter() - t0) / 5 / N_PAIRS * 1e3
+        n_inst = [len(r[v]["instances"]) for r in res for v in ("0", "1")]
+        print(f"[entry] postprocess {ms:.3f} ms/pair on the {what}'s outputs (instances per view "
+              f"{n_inst}), host CPU of {card}")
+
+
+def numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: numpy_tree(v) for k, v in tree.items()}
+    return tree.cpu().numpy()
+
+
 def main():
     try:
         import torch
@@ -704,15 +981,20 @@ def main():
         name, card = phase_device(torch)
         phase_build()
         kernels = [check_select(torch, dev), check_sinkhorn(torch, dev)]
-        counts, model, images = run_main_path(torch, dev, card)
-        run_planar_scene(torch, dev, model, images, card)
+        counts, model, batches, outs, _ = run_main_path(torch, dev, card)
+        planar_out = run_planar_scene(torch, dev, model, batches[0], card)
         check_small_reference(torch, dev)
-        del model
+        b4 = check_bottleneck(torch, dev, card)
+        fused_counts, fused = run_fused_path(torch, dev, model, batches, outs, card)
+        counts["bottleneck_tail"] = fused_counts["bottleneck_tail"]
+        run_entry_point(torch, dev, fused, planar_out, card)
+        del model, fused, batches, outs, planar_out
         torch.cuda.empty_cache()
         kernels += check_mask_loss(torch, dev)
         counts.update({k: v for k, v in run_train_path(torch, dev, card).items()
                        if k.startswith("mask_loss")})
         check_train_reference(torch, dev)
+        kernels.append(b4)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

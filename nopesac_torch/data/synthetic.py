@@ -2,9 +2,10 @@
 copy of the JAX package's numpy generator, `data/synthetic.py:make_pair`).
 
 It makes the same random draws in the same order, so one seed gives the same
-pairs in both packages. The one difference: each annotation carries its
-plane mask dense (`"mask"`, uint8 [H, W]) where the JAX generator stores an
-RLE string that its mapper decodes again.
+pairs in both packages, with the same COCO RLE `segmentation`, `file_name`
+and `image_id` that the evaluator reads. The one addition: each annotation
+also carries its plane mask dense (`"mask"`, uint8 [H, W]), which the
+mapper takes without decoding the RLE again.
 
 Geometry: a relative pose and view-0 planes are drawn; view-1 plane params
 come from the exact plane warp, so matching and pose have known optima. Each
@@ -16,6 +17,7 @@ from typing import List
 
 import numpy as np
 
+from ..utils import rle
 from .mapper import DEFAULT_FOCAL
 
 FLIP = np.array([1.0, -1.0, -1.0])
@@ -63,8 +65,8 @@ def _plane_depth(p: np.ndarray, rays: np.ndarray, max_depth: float = 10.0) -> np
 def make_pair(rng: np.random.Generator, n_planes: int = 6, h: int = 480, w: int = 640,
               pair_id: int = 0) -> dict:
     """One pair dict: views "0" and "1" (image uint8 [H, W, 3], depth, one
-    annotation per plane with its dense mask and params), "rel_pose" and
-    "gt_corrs" (plane i of view 0 is plane i of view 1)."""
+    annotation per plane with its RLE, dense mask and params), "rel_pose"
+    and "gt_corrs" (plane i of view 0 is plane i of view 1)."""
     # relative pose: modest rotation + translation, w >= 0
     rv = rng.normal(size=3) * 0.3
     angle = np.linalg.norm(rv)
@@ -125,10 +127,13 @@ def make_pair(rng: np.random.Generator, n_planes: int = 6, h: int = 480, w: int 
                 "bbox": [x0, y0, x1, y1],
                 "bbox_mode": 0,  # XYXY_ABS
                 "category_id": 0,
+                "segmentation": {"size": [h, w],
+                                 "counts": rle.encode(mask)["counts"].decode("ascii")},
                 "mask": mask,
                 "plane": [float(v) for v in p],
             })
         return {
+            "file_name": f"/nonexistent/synth_{pair_id}_{idx}.jpg",
             "image_id": f"synth{pair_id}_{idx}",
             "height": h,
             "width": w,

@@ -27,11 +27,13 @@ from ..utils.weights import seeded_init
 
 
 def build_model_from_cfg(cfg: CfgNode, device: DeviceLike = None,
-                         seed: Optional[int] = None) -> PlaneTRNopeSAC:
+                         seed: Optional[int] = None, fuse_tail: bool = False) -> PlaneTRNopeSAC:
     """The model of a config, in eval mode on `device` (default `cuda`),
     with the config's loss switches and weights for `train_forward`. `seed`
     fills it with seeded random weights; otherwise load a state_dict into it.
-    Sets the f32 precision policy."""
+    `fuse_tail` runs the backbone's identity-block tails through kernel B4 at
+    inference (no config key: the JAX package has none either). Sets the f32
+    precision policy."""
     dev = resolve_device(device)
     set_f32_parity()
     if cfg.MODEL.get("COMPUTE_DTYPE", "float32") != "float32":
@@ -78,6 +80,7 @@ def build_model_from_cfg(cfg: CfgNode, device: DeviceLike = None,
         inference_out_cam_type=cam.INFERENCE_OUT_CAM_TYPE,
         transformer_dropout=h.get("DROPOUT", 0.1),
         train_settings=settings,
+        fuse_tail=fuse_tail,
     )
     if seed is not None:
         seeded_init(model, seed)

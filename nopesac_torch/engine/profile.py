@@ -1,12 +1,13 @@
 """Where the eval step's or the train step's time goes on the card.
 
     python -m nopesac_torch.engine.profile [--config-file configs/inference_mp3d.yaml]
-        [--batches 5] [--out FILE]
+        [--batches 5] [--fuse-tail] [--out FILE]
     python -m nopesac_torch.engine.profile --train [--config-file configs/train_mp3d_step3.yaml]
         [--batches 3] [--out FILE] [KEY VALUE ...]
 
-The eval step: builds the inference model with seeded random weights, runs a
-warm-up batch of TEST.IMS_PER_BATCH synthetic uint8 pairs. The train step
+The eval step: builds the inference model with seeded random weights (with
+`--fuse-tail`, its backbone runs the identity-block tails through kernel B4),
+runs a warm-up batch of TEST.IMS_PER_BATCH synthetic uint8 pairs. The train step
 (`--train`, f32): builds the train model and TrainStep, runs a warm-up step
 on SOLVER.IMS_PER_BATCH synthetic pairs of 12 planes per view. Then two
 timed passes of `--batches` batches each:
@@ -65,10 +66,10 @@ class StageTimer:
         return {k: sum(s.elapsed_time(e) for s, e in v) for k, v in self.events.items()}
 
 
-def _eval_setup(cfg, n_batches):
+def _eval_setup(cfg, n_batches, fuse_tail=False):
     h, w = cfg.INPUT.IMAGE_SIZE
     bs = cfg.TEST.IMS_PER_BATCH
-    model = build_model_from_cfg(cfg, seed=0)
+    model = build_model_from_cfg(cfg, seed=0, fuse_tail=fuse_tail)
     step = make_eval_step(model, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
     batches = [synthetic_pairs(bs, h, w, seed=s) for s in range(n_batches + 1)]
     head = model.camera_head
@@ -106,6 +107,7 @@ def main(argv=None) -> int:
                     help="default: configs/inference_mp3d.yaml, or train_mp3d_step3.yaml")
     ap.add_argument("--train", action="store_true", help="profile the train step")
     ap.add_argument("--batches", type=int, default=5)
+    ap.add_argument("--fuse-tail", action="store_true", help="eval step with kernel B4")
     ap.add_argument("--out", default=None)
     ap.add_argument("opts", nargs=argparse.REMAINDER, help="KEY VALUE config overrides")
     args = ap.parse_args(argv)
@@ -121,7 +123,10 @@ def main(argv=None) -> int:
     if args.opts:
         cfg.merge_from_list(args.opts)
     h, w = cfg.INPUT.IMAGE_SIZE
-    bs, step, batches, spans = (_train_setup if args.train else _eval_setup)(cfg, args.batches)
+    if args.train:
+        bs, step, batches, spans = _train_setup(cfg, args.batches)
+    else:
+        bs, step, batches, spans = _eval_setup(cfg, args.batches, args.fuse_tail)
     step(batches[0])  # warm-up
     torch.cuda.synchronize()
 
@@ -162,7 +167,8 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, timeout=60)
     result = {
         "device": torch.cuda.get_device_name(0), "card": smi.stdout.strip().splitlines()[0],
-        "step": "train" if args.train else "eval", "pairs_per_batch": bs, "image": [h, w],
+        "step": "train" if args.train else "eval", "fuse_tail": args.fuse_tail,
+        "pairs_per_batch": bs, "image": [h, w],
         "sinkhorn_iters": cfg.MODEL.MATCHING_HEAD.SINKHORN_ITERS,
         "peak_memory_gib": peak / 2**30,
         "wall_ms_per_batch": wall_ms, "pairs_per_s": bs / wall_ms * 1e3,

@@ -31,9 +31,13 @@ class FrozenBatchNorm2d(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x):
+    def folded(self):
+        """The per-channel (mul, add) of the affine."""
         mul = self.weight * torch.rsqrt(self.running_var + self.eps)
-        add = self.bias - self.running_mean * mul
+        return mul, self.bias - self.running_mean * mul
+
+    def forward(self, x):
+        mul, add = self.folded()
         return x * mul[None, :, None, None] + add[None, :, None, None]
 
 

@@ -85,7 +85,7 @@ class PlaneTRNopeSAC(nn.Module):
                  plane_score_threshold: float = 0.6, mask_prob_threshold: float = 0.5,
                  overlap_threshold: float = 0.6, matching_score_threshold: float = 0.2,
                  inference_out_cam_type: str = "soft", transformer_dropout: float = 0.1,
-                 train_settings: Optional[TrainSettings] = None):
+                 train_settings: Optional[TrainSettings] = None, fuse_tail: bool = False):
         super().__init__()
         self.train_settings = train_settings or TrainSettings()
         if inference_out_cam_type not in OUT_CAM_TYPES:
@@ -104,7 +104,7 @@ class PlaneTRNopeSAC(nn.Module):
         self.matching_score_threshold = matching_score_threshold
         self.inference_out_cam_type = inference_out_cam_type
 
-        self.backbone = ResNet()
+        self.backbone = ResNet(fuse_tail=fuse_tail)
         self.sem_seg_head = PlaneTRHead(num_queries=num_queries, dropout=transformer_dropout)
         if embedding_on:
             self.matching_head = MatchingHead(offset_multiplier, normal_multiplier,

@@ -2,7 +2,11 @@
 package's `models/resnet.py`): STRIDE_IN_1X1=False (stride on the 3x3 conv),
 FrozenBN, projection shortcut on the first block of each stage, and the
 reference checkpoint's names `stem.conv1`, `res{2..5}.{i}.conv{1,2,3}`,
-`res{2..5}.0.shortcut`, each conv with a `.norm` child."""
+`res{2..5}.0.shortcut`, each conv with a `.norm` child.
+
+`fuse_tail=True` runs each identity block's conv1 and conv3 (with their
+FrozenBN, the residual and the ReLU) as kernel B4 (`ops/bottleneck.py`) in
+eval mode; it adds no parameters. Off by default, as in the JAX package."""
 from __future__ import annotations
 
 from typing import Dict
@@ -11,6 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.bottleneck import conv1x1_bn_act
 from .layers import ConvNorm, FrozenBatchNorm2d
 
 STAGE_BLOCKS = (3, 4, 6, 3)  # bottleneck blocks of res2..res5
@@ -33,17 +38,23 @@ class BasicStem(nn.Module):
 
 class Bottleneck(nn.Module):
     """1x1 -> 3x3(stride) -> 1x1 with FrozenBN and an optional projection
-    shortcut."""
+    shortcut. With `fuse_tail`, an identity block in eval mode runs conv1 and
+    conv3 through kernel B4 (conv2 stays a cuDNN conv)."""
 
     def __init__(self, in_ch: int, bottleneck_ch: int, out_ch: int, stride: int,
-                 shortcut: bool):
+                 shortcut: bool, fuse_tail: bool = False):
         super().__init__()
+        self.fuse_tail = fuse_tail
         self.shortcut = _conv_fbn(in_ch, out_ch, 1, stride=stride) if shortcut else None
         self.conv1 = _conv_fbn(in_ch, bottleneck_ch, 1, relu=True)
         self.conv2 = _conv_fbn(bottleneck_ch, bottleneck_ch, 3, stride=stride, relu=True)
         self.conv3 = _conv_fbn(bottleneck_ch, out_ch, 1)
 
     def forward(self, x):
+        if self.fuse_tail and not self.training and self.shortcut is None:
+            out = conv1x1_bn_act(x, self.conv1.weight, *self.conv1.norm.folded(), relu=True)
+            return conv1x1_bn_act(self.conv2(out), self.conv3.weight, *self.conv3.norm.folded(),
+                                  residual=x, relu=True)
         out = self.conv3(self.conv2(self.conv1(x)))
         sc = self.shortcut(x) if self.shortcut is not None else x
         return F.relu(out + sc)
@@ -52,7 +63,7 @@ class Bottleneck(nn.Module):
 class ResNet(nn.Module):
     """ResNet-50; returns the {res2, res3, res4, res5} NCHW feature maps."""
 
-    def __init__(self):
+    def __init__(self, fuse_tail: bool = False):
         super().__init__()
         self.stem = BasicStem(64)
         in_ch, out_ch, bott = 64, 256, 64
@@ -61,7 +72,8 @@ class ResNet(nn.Module):
             blocks = []
             for i in range(n_blocks):
                 stride = 2 if (i == 0 and s > 0) else 1
-                blocks.append(Bottleneck(in_ch, bott, out_ch, stride, shortcut=(i == 0)))
+                blocks.append(Bottleneck(in_ch, bott, out_ch, stride, shortcut=(i == 0),
+                                         fuse_tail=fuse_tail))
                 in_ch = out_ch
             name = f"res{s + 2}"
             self.add_module(name, nn.Sequential(*blocks))

@@ -58,5 +58,5 @@ def refuse_autograd(kernel: str, *tensors: torch.Tensor) -> None:
 
 
 # the kernels of the port; each `ops/` wrapper bumps its own name
-KERNEL_NAMES = ("select_maps", "sinkhorn", "mask_loss_fwd", "mask_loss_bwd")
+KERNEL_NAMES = ("select_maps", "sinkhorn", "mask_loss_fwd", "mask_loss_bwd", "bottleneck_tail")
 LAUNCHES = LaunchCounters(KERNEL_NAMES)

@@ -103,39 +103,43 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping | None = None,
                 frozen_bn(f"{dst}.shortcut.norm", src["shortcut_bn"])
 
     # ---- PlaneTR head
-    ph, ph_bs = params["plane_head"], bs.get("plane_head", {})
-    hp = "sem_seg_head"
-    conv(f"{hp}.input_proj", ph["input_proj"])
-    put(f"{hp}.query_embed.weight", ph["query_embed"])
-    for tname, jname, attns in (("context_SA", "context_sa", (("self_attn", "self_attn"),)),
-                                ("context2plane_decoder", "decoder",
-                                 (("self_attn", "self_attn"), ("multihead_attn", "cross_attn")))):
-        lay = ph[jname]["layers"]["layer"]
-        n_layers = lay["linear1"]["kernel"].shape[0]
-        for i in range(n_layers):
-            dst = f"{hp}.{tname}.layers.{i}"
-            for tattn, jattn in attns:
-                a = lay[jattn]
-                put(f"{dst}.{tattn}.in_proj_weight",
-                    np.concatenate([_lin(a[p]["kernel"][i]) for p in ("q_proj", "k_proj", "v_proj")]))
-                put(f"{dst}.{tattn}.in_proj_bias",
-                    np.concatenate([a[p]["bias"][i] for p in ("q_proj", "k_proj", "v_proj")]))
-                dense(f"{dst}.{tattn}.out_proj", a["out_proj"], i)
-            dense(f"{dst}.linear1", lay["linear1"], i)
-            dense(f"{dst}.linear2", lay["linear2"], i)
-            for norm in ("norm1", "norm2", "norm3"):
-                if norm in lay:
-                    layer_norm(f"{dst}.{norm}", lay[norm], i)
-        layer_norm(f"{hp}.{tname}.norm", ph[jname]["norm"])
-    td, td_bs = ph["top_down"], ph_bs.get("top_down", {})
-    for name in ("c1_conv", "c2_conv", "c3_conv", "c4_conv", "up_conv1", "up_conv2", "up_conv3"):
-        conv_bn(f"{hp}.top_down.{name}", td[name], td_bs.get(name))
-    conv_bn(f"{hp}.top_down.m_conv_dict.m4", td["m4_conv"], td_bs.get("m4_conv"))
-    for name in ("plane_embedding", "plane_param", "plane_center"):
-        mlp(f"{hp}.{name}", ph[name])
-    dense(f"{hp}.plane_prob", ph["plane_prob"])
-    conv(f"{hp}.pixel_embedding", ph["pixel_embedding"])
-    conv(f"{hp}.pixel_plane_center", ph["pixel_plane_center"])
+    if "plane_head" in params:
+        ph, ph_bs = params["plane_head"], bs.get("plane_head", {})
+        hp = "sem_seg_head"
+        conv(f"{hp}.input_proj", ph["input_proj"])
+        put(f"{hp}.query_embed.weight", ph["query_embed"])
+        stacks = (("context_SA", "context_sa", (("self_attn", "self_attn"),)),
+                  ("context2plane_decoder", "decoder",
+                   (("self_attn", "self_attn"), ("multihead_attn", "cross_attn"))))
+        for tname, jname, attns in stacks:
+            lay = ph[jname]["layers"]["layer"]
+            n_layers = lay["linear1"]["kernel"].shape[0]
+            for i in range(n_layers):
+                dst = f"{hp}.{tname}.layers.{i}"
+                for tattn, jattn in attns:
+                    a = lay[jattn]
+                    qkv = ("q_proj", "k_proj", "v_proj")
+                    put(f"{dst}.{tattn}.in_proj_weight",
+                        np.concatenate([_lin(a[p]["kernel"][i]) for p in qkv]))
+                    put(f"{dst}.{tattn}.in_proj_bias",
+                        np.concatenate([a[p]["bias"][i] for p in qkv]))
+                    dense(f"{dst}.{tattn}.out_proj", a["out_proj"], i)
+                dense(f"{dst}.linear1", lay["linear1"], i)
+                dense(f"{dst}.linear2", lay["linear2"], i)
+                for norm in ("norm1", "norm2", "norm3"):
+                    if norm in lay:
+                        layer_norm(f"{dst}.{norm}", lay[norm], i)
+            layer_norm(f"{hp}.{tname}.norm", ph[jname]["norm"])
+        td, td_bs = ph["top_down"], ph_bs.get("top_down", {})
+        for name in ("c1_conv", "c2_conv", "c3_conv", "c4_conv", "up_conv1", "up_conv2",
+                     "up_conv3"):
+            conv_bn(f"{hp}.top_down.{name}", td[name], td_bs.get(name))
+        conv_bn(f"{hp}.top_down.m_conv_dict.m4", td["m4_conv"], td_bs.get("m4_conv"))
+        for name in ("plane_embedding", "plane_param", "plane_center"):
+            mlp(f"{hp}.{name}", ph[name])
+        dense(f"{hp}.plane_prob", ph["plane_prob"])
+        conv(f"{hp}.pixel_embedding", ph["pixel_embedding"])
+        conv(f"{hp}.pixel_plane_center", ph["pixel_plane_center"])
 
     # ---- matching head
     if "matching_head" in params:

@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from nopesac_torch.core.sinkhorn import masked_ot_prologue
-from nopesac_torch.ops import mask_loss, select, sinkhorn
+from nopesac_torch.models.resnet import ResNet
+from nopesac_torch.ops import bottleneck, mask_loss, select, sinkhorn
 from nopesac_torch.utils.device import LAUNCHES
 
 pytestmark = pytest.mark.gpu
@@ -23,6 +24,11 @@ OT_KERNEL_TOL = 1e-4  # other reduction order and expf/logf ulps, compounded ove
 # version's; the gradient is compared relative to its largest entry
 MASK_SUM_RTOL = 1e-4
 MASK_GRAD_TOL = 1e-4
+# B4: f32 sums over Cin in another order than the plain version's matmul,
+# relative to the largest output; bf16 outputs within one bf16 ulp
+# (2^-7 |ref| + 1e-6)
+B4_F32_TOL = 1e-5
+BF16_ULP = 2.0 ** -7
 
 
 @pytest.fixture
@@ -173,3 +179,70 @@ def test_mask_loss_kernel_rejects_other_ratios(cuda):
     src, masks, tgt, matched = mask_loss_inputs(cuda, 3, 1, 12, 24, 32, 2)
     with pytest.raises(ValueError, match="4x"):
         mask_loss.fused_focal_dice(src[..., :16], masks, tgt, matched)
+
+
+def _b4_inputs(dev, seed, b, cin, cout, h, w, residual, dtype):
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    x = t(np.abs(rng.normal(0, 1, (b, cin, h, w)))).to(dtype)  # post-ReLU activations
+    wt = t(rng.normal(0, (2.0 / cin) ** 0.5, (cout, cin, 1, 1)))
+    scale, shift = t(rng.uniform(0.5, 1.5, cout)), t(rng.normal(0, 0.1, cout))
+    res = t(rng.normal(0, 1, (b, cout, h, w))).to(dtype) if residual else None
+    return x, wt, scale, shift, res
+
+
+@pytest.mark.parametrize("b,cin,cout,h,w,residual,relu,dtype", [
+    (2, 64, 256, 15, 20, True, True, torch.float32),     # the JAX test's P = 300
+    (2, 64, 256, 15, 20, True, False, torch.bfloat16),
+    (2, 64, 256, 15, 20, False, True, torch.bfloat16),
+    (8, 256, 64, 120, 160, False, True, torch.float32),  # res2 conv1 of the eval path
+    (8, 512, 2048, 15, 20, True, True, torch.float32),   # res5 conv3
+    (1, 96, 72, 7, 9, True, True, torch.float32),        # ragged Cout and P
+])
+def test_bottleneck_kernel_matches_plain(cuda, b, cin, cout, h, w, residual, relu, dtype):
+    x, wt, scale, shift, res = _b4_inputs(cuda, 0, b, cin, cout, h, w, residual, dtype)
+    before = LAUNCHES["bottleneck_tail"]
+    got = bottleneck.conv1x1_bn_act(x, wt, scale, shift, residual=res, relu=relu)
+    assert LAUNCHES["bottleneck_tail"] == before + 1
+    ref = bottleneck.conv1x1_bn_act_plain(x, wt, scale, shift, residual=res, relu=relu)
+    assert got.dtype == dtype and got.shape == (b, cout, h, w)
+    diff = (got.float() - ref.float()).abs()
+    if dtype == torch.bfloat16:
+        assert bool((diff <= BF16_ULP * ref.float().abs() + 1e-6).all()), float(diff.max())
+    else:
+        assert float(diff.max()) <= B4_F32_TOL * float(ref.abs().max())
+    if relu:
+        assert bool((got >= 0).all())
+
+
+def test_bottleneck_kernel_refuses_autograd(cuda):
+    x, wt, scale, shift, _ = _b4_inputs(cuda, 1, 1, 64, 64, 4, 4, False, torch.float32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        bottleneck.conv1x1_bn_act_cuda(x, wt.requires_grad_(True), scale, shift)
+    with torch.no_grad():
+        assert torch.isfinite(bottleneck.conv1x1_bn_act_cuda(x, wt, scale, shift)).all()
+
+
+def test_fused_backbone_matches_unfused_on_card(cuda):
+    gen = torch.Generator().manual_seed(0)
+    fused, plain = ResNet(fuse_tail=True).eval(), ResNet().eval()
+    with torch.no_grad():
+        for name, buf in fused.state_dict().items():
+            if buf.dim() == 4:  # conv weights: He init
+                buf.copy_(torch.randn(buf.shape, generator=gen) * (2.0 / buf[0].numel()) ** 0.5)
+            elif name.endswith(("weight", "running_var")):  # FrozenBN statistics and affine
+                buf.copy_(torch.rand(buf.shape, generator=gen) + 0.5)
+            else:
+                buf.copy_(torch.randn(buf.shape, generator=gen) * 0.1)
+    plain.load_state_dict(fused.state_dict())
+    fused, plain = fused.to(cuda), plain.to(cuda)
+    x = torch.randn((2, 3, 64, 96), generator=gen).to(cuda)
+    before = LAUNCHES["bottleneck_tail"]
+    with torch.inference_mode():
+        got, ref = fused(x), plain(x)
+    assert LAUNCHES["bottleneck_tail"] == before + 24  # two per identity block
+    for name, r in ref.items():
+        assert float((got[name] - r).abs().max()) <= 1e-4 * float(r.abs().max()), name
