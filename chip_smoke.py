@@ -27,7 +27,8 @@ Phases, in order; any failure exits non-zero before the last line:
      step: [32, 50, 120, 160] logits, [32, 50, 480, 640] uint8 masks, 12
      matched queries per view; kernel against its plain version: sums within
      rtol 1e-4, d src within 1e-4 of max |d src|, exact zeros for unmatched
-     queries, and an all-unmatched batch;
+     queries, and an all-unmatched batch; each kernel's registers, shared
+     memory, spill bytes and resident blocks per SM (cudaFuncGetAttributes);
   9. train path: the train step of configs/train_mp3d_step3.yaml (f32, 16
      pairs of 480x640, seeded random weights) on synthetic pairs of 12
      planes per view from the port's generator, a warm-up step, then 3
@@ -47,7 +48,9 @@ Phases, in order; any failure exits non-zero before the last line:
      (B 2, P 300, 64 -> 256, with and without residual and ReLU) and at
      res2's conv3, within one bf16 ulp of it (2^-7 |ref| + 1e-6);
      times beside the unfused sequence the backbone runs without B4 (cuDNN
-     1x1 conv, then the ATen affine, add and ReLU);
+     1x1 conv, then the ATen affine, add and ReLU); every eval shape must
+     take the vec variant, whose config (BM, Cin split, blocks) is printed
+     per shape with each variant's registers, shared memory and spills;
  12. fused-tail eval path: the phase-5 model and batches with
      `fuse_tail=True`: B4's counter rises by exactly 24 per batch (12
      identity blocks, two calls each), res2..res5 match the unfused backbone
@@ -499,6 +502,9 @@ def check_mask_loss(torch, dev):
     if not (sum_rel <= 1e-4 and grad_err <= 1e-4 * scale and zeros_ok):
         raise SmokeFailure("B3 kernel disagrees with its plain version")
 
+    for which in ("fwd", "bwd"):
+        print(f"[B3 mask_loss] {which} kernel at w {w}: {mask_loss.kernel_attributes(which, w)} "
+              f"(cudaFuncGetAttributes)")
     idx = mask_loss._flat_index(masks, tgt, matched)
     grad3 = weights[..., :3].reshape(-1, 3).contiguous()
     ms_fwd = cuda_ms(torch, lambda: mask_loss.mask_loss_fwd_cuda(src, masks, idx), iters=50)
@@ -753,8 +759,12 @@ def check_bottleneck(torch, dev, card):
         for cin, co, residual in ((cout, mid, False), (mid, cout, True)):
             x, wt, scale, shift, res = b4_inputs(torch, dev, len(rows), b, cin, co, h, w, residual)
             got = bottleneck.conv1x1_bn_act_cuda(x, wt, scale, shift, residual=res)
+            cfg = dict(bottleneck.last_config)
             ref = bottleneck.conv1x1_bn_act_plain(x, wt, scale, shift, residual=res)
             torch.cuda.synchronize()
+            if cfg["variant"] != "vec":
+                raise SmokeFailure(f"B4 took its {cfg['variant']} variant at {stage} {cin}->{co}; "
+                                   f"every eval shape must take the vec one")
             err = float((got - ref).abs().max())
             rel = err / float(ref.abs().max())
             worst = max(worst, err)
@@ -774,11 +784,12 @@ def check_bottleneck(torch, dev, card):
             bms, by = bound_ms(*b4_cost(b, cin, co, h * w, residual))
             rows.append({"shape": f"{stage} {cin}->{co}{' +res' if residual else ''}",
                          "P": b * h * w, "ms": ms, "plain_ms": plain_ms, "unfused_ms": unfused_ms,
-                         "bound_ms": bms, "bound_by": by, "max_rel_err": rel})
+                         "bound_ms": bms, "bound_by": by, "max_rel_err": rel, "config": cfg})
             print(f"[B4 bottleneck_tail] {rows[-1]['shape']} (P {b * h * w}, x{n_blocks} per "
                   f"batch): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, unfused cuDNN+ATen "
                   f"{unfused_ms:.4f} ms, bound {bms:.4f} ms ({by}); max |diff| {err:.3e} "
-                  f"({rel:.2e} of max |ref|)")
+                  f"({rel:.2e} of max |ref|); variant {cfg['variant']}, BM {cfg['bm']}, split "
+                  f"{cfg['split']}, {cfg['blocks']} blocks")
             for key, v in (("ms", ms), ("plain_ms", plain_ms), ("unfused_ms", unfused_ms),
                            ("bound_ms", bms)):
                 total[key] += n_blocks * v
@@ -793,6 +804,7 @@ def check_bottleneck(torch, dev, card):
         x, wt, scale, shift, res = b4_inputs(torch, dev, 100 + cin, bb, cin, co, h, w, residual,
                                              torch.bfloat16)
         got = bottleneck.conv1x1_bn_act_cuda(x, wt, scale, shift, residual=res, relu=relu).float()
+        variant = bottleneck.last_config["variant"]
         ref = bottleneck.conv1x1_bn_act_plain(x, wt, scale, shift, residual=res, relu=relu).float()
         torch.cuda.synchronize()
         diff, lim = (got - ref).abs(), BF16_ULP * ref.abs() + 1e-6
@@ -800,10 +812,14 @@ def check_bottleneck(torch, dev, card):
         ulps = float((diff / lim).max())
         bf16_rel = max(bf16_rel, ulps)
         print(f"[B4 bottleneck_tail] bf16 [{bb}, {cin}, {h * w}] -> {co}, residual {residual}, "
-              f"relu {relu}: max |diff| {float(diff.max()):.3e}, max |diff| / (2^-7 |ref| + "
-              f"1e-6) {ulps:.3f}; {over} of {diff.numel()} outside")
+              f"relu {relu} ({variant} variant): max |diff| {float(diff.max()):.3e}, max |diff| / "
+              f"(2^-7 |ref| + 1e-6) {ulps:.3f}; {over} of {diff.numel()} outside")
         if over:
             raise SmokeFailure("B4 kernel (bf16) disagrees with its plain version")
+    for dtype, bm, variant in ((torch.float32, 128, "vec"), (torch.float32, 64, "vec"),
+                               (torch.bfloat16, 128, "scalar")):
+        print(f"[B4 bottleneck_tail] {variant} {str(dtype)[6:]} BM {bm}: "
+              f"{bottleneck.kernel_attributes(dtype, bm, variant)} (cudaFuncGetAttributes)")
     by = "bytes" if by_count["bytes"] > by_count["operations"] else "operations"
     print(f"[B4 bottleneck_tail] per eval batch ({B4_LAUNCHES} calls): kernel {total['ms']:.4f} "
           f"ms, plain {total['plain_ms']:.4f} ms, unfused cuDNN+ATen {total['unfused_ms']:.4f} "

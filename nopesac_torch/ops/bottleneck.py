@@ -40,6 +40,39 @@ def conv1x1_bn_act_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     return acc.to(x.dtype).reshape(b, w2.shape[0], *x.shape[2:])
 
 
+SMS = 132            # H100 SXM
+BLOCKS_PER_SM = 2    # 256 threads at <= 128 registers (the kernel's launch bounds)
+TILE_COLS = 128      # pixels per block
+MAX_SPLIT = 8        # the portable thread-block cluster size
+MIN_PART = 128       # Cin per split part
+
+
+def b4_config(b: int, cin: int, cout: int, p: int, dtype: torch.dtype = torch.float32,
+              aligned: bool = True) -> dict:
+    """The compiled variant and launch config of `csrc/bottleneck.cu` for one
+    call (the table in its source note). `vec` (f32, P % 4 == 0, Cin % 4 ==
+    0, 16-byte aligned tensors) takes the cp.async path; anything else the
+    masked scalar one. BM is 64 where Cout <= 64, else 128. On `vec`, Cin is
+    split in 2, 4 or 8 while the grid is under two waves of SMS x
+    BLOCKS_PER_SM blocks and each part keeps at least MIN_PART of Cin."""
+    vec = dtype == torch.float32 and aligned and p % 4 == 0 and cin % 4 == 0
+    bm = 64 if cout <= 64 else 128
+    tiles = -(-cout // bm) * -(-(b * p) // TILE_COLS)
+    split = 1
+    while (vec and tiles * split < 2 * SMS * BLOCKS_PER_SM and 2 * split <= MAX_SPLIT
+           and cin % (16 * 2 * split) == 0 and cin // (2 * split) >= MIN_PART):
+        split *= 2
+    return {"variant": "vec" if vec else "scalar", "bm": bm, "split": split, "tiles": tiles,
+            "blocks": tiles * split}
+
+
+last_config: dict = {}  # the config of the latest CUDA launch
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors if t is not None)
+
+
 def conv1x1_bn_act_cuda(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                         shift: torch.Tensor, residual: Optional[torch.Tensor] = None,
                         relu: bool = True) -> torch.Tensor:
@@ -70,20 +103,37 @@ def conv1x1_bn_act_cuda(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     w = w.to(x.dtype).contiguous()
     scale = scale.to(torch.float32).contiguous()
     shift = shift.to(torch.float32).contiguous()
-    res_ptr = None if residual is None else residual.contiguous()
+    res = None if residual is None else residual.contiguous()
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     p = x[0, 0].numel()
+    cfg = b4_config(b, cin, cout, p, x.dtype, _aligned(x, w, res, out))
     fn = _build.load("bottleneck").nopesac_conv1x1_bn_act
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                 None if res_ptr is None else res_ptr.data_ptr(), out.data_ptr(),
-                 b, cin, cout, p, int(relu), int(x.dtype == torch.bfloat16), stream)
+                 None if res is None else res.data_ptr(), out.data_ptr(),
+                 b, cin, cout, p, int(relu), int(x.dtype == torch.bfloat16), cfg["bm"],
+                 int(cfg["variant"] == "vec"), cfg["split"], stream)
     _build.check(err, "nopesac_conv1x1_bn_act")
     LAUNCHES.bump(KERNEL)
+    last_config.clear()
+    last_config.update(cfg)
     return out
+
+
+def kernel_attributes(dtype: torch.dtype, bm: int, variant: str) -> dict:
+    """Registers, shared memory and spill bytes of one compiled variant
+    (cudaFuncGetAttributes), for the record of a run on the card."""
+    fn = _build.load("bottleneck").nopesac_conv1x1_bn_act_attrs
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    vals = (ctypes.c_int * 5)()
+    _build.check(fn(int(dtype == torch.bfloat16), bm, int(variant == "vec"), vals),
+                 "nopesac_conv1x1_bn_act_attrs")
+    return dict(zip(("registers", "static_smem", "dynamic_smem", "local_bytes", "max_threads"),
+                    vals))
 
 
 def conv1x1_bn_act(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,

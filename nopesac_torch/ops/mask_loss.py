@@ -25,6 +25,7 @@ from . import _build
 KERNEL_FWD = "mask_loss_fwd"
 KERNEL_BWD = "mask_loss_bwd"
 RATIO = 4  # mask logits sit at 1/4 of the image in every config
+MAX_WIDTH = 256  # 32 lanes x 8 columns per lane (csrc/mask_loss.cu)
 
 # output index i of a 4x upsample reads inputs (lo, lo + 1), lo = i // 4 - 1
 # for i % 4 < 2 and i // 4 otherwise, with weight 1 - frac and frac
@@ -49,6 +50,35 @@ def upsample4(x: torch.Tensor) -> torch.Tensor:
     yl, yh, ay, by = _taps(h, x.device)
     cols = ax * x[..., xl] + bx * x[..., xh]  # [..., h, 4w]
     return ay[:, None] * cols[..., yl, :] + by[:, None] * cols[..., yh, :]
+
+
+# the adjoint of the 4x upsample: src index k reads outputs 4k-2 .. 4k+5 with
+# these weights; outputs past an edge do not exist, and the two outputs next
+# to an edge carry weight 1 (their clamped tap adds the missing part)
+ADJOINT_TAPS = (0.125, 0.375, 0.625, 0.875, 0.875, 0.625, 0.375, 0.125)
+
+
+def _adjoint_1d(g: torch.Tensor, dim: int) -> torch.Tensor:
+    """[..., 4n, ...] -> [..., n, ...] along `dim` by the constant 8-tap table
+    with the edge fix-ups, as `csrc/mask_loss.cu`'s backward applies it."""
+    g = g.movedim(dim, -1)
+    n = g.shape[-1] // RATIO
+    pad = torch.nn.functional.pad(g, (2, 2))  # outputs -2, -1 and 4n, 4n+1 as zeros
+    out = sum(wt * pad[..., a:a + 4 * n:4] for a, wt in enumerate(ADJOINT_TAPS))
+    # edge fix-ups: outputs 0, 1 reach src 0 with weight 1, not 5/8, 7/8; outputs
+    # 4n-2, 4n-1 reach src n-1 with weight 1, not 7/8, 5/8
+    first = 0.375 * g[..., 0] + 0.125 * g[..., 1]
+    last = 0.125 * g[..., 4 * n - 2] + 0.375 * g[..., 4 * n - 1]
+    out = out.clone()
+    out[..., 0] += first
+    out[..., n - 1] += last
+    return out.movedim(-1, dim)
+
+
+def upsample4_adjoint(g: torch.Tensor) -> torch.Tensor:
+    """The transpose of `upsample4`: [..., 4h, 4w] -> [..., h, w], columns
+    then rows."""
+    return _adjoint_1d(_adjoint_1d(g, -1), -2)
 
 
 def elem_terms(z: torch.Tensor, t: torch.Tensor):
@@ -88,6 +118,9 @@ def _check(src: torch.Tensor, gt_masks: torch.Tensor, tgt_idx: torch.Tensor,
                          f"{h}x{w} -> {tuple(gt_masks.shape[2:])}")
     if tuple(tgt_idx.shape) != (b, nq) or (matched is not None and tuple(matched.shape) != (b, nq)):
         raise ValueError(f"tgt_idx/matched must be [{b}, {nq}]")
+    if w > MAX_WIDTH and src.device.type == "cuda":
+        raise ValueError(f"the mask loss kernel holds up to {MAX_WIDTH} logit columns per "
+                         f"warp, got w = {w}")
     if src.dtype != torch.float32:
         raise TypeError(f"mask loss takes f32 logits, got {src.dtype}")
     if gt_masks.dtype != torch.uint8:
@@ -123,6 +156,25 @@ def _launch(fn_name: str, argtypes, *args) -> None:
     _build.check(fn(*args), fn_name)
 
 
+def _work(n_pairs: int, dev) -> torch.Tensor:
+    """Scratch of the device-side compaction: the matched pair ids, the
+    unmatched ones and their two counts, filled by the kernel (no host
+    sync)."""
+    return torch.empty(2 * n_pairs + 2, dtype=torch.int32, device=dev)
+
+
+def kernel_attributes(which: str, w: int) -> dict:
+    """Registers, static and dynamic shared memory, spill bytes and resident
+    blocks per SM of the forward or backward kernel at src width w."""
+    fn = _build.load("mask_loss").nopesac_mask_loss_attrs
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    vals = (ctypes.c_int * 5)()
+    _build.check(fn(int(which == "bwd"), w, vals), "nopesac_mask_loss_attrs")
+    return dict(zip(("registers", "static_smem", "dynamic_smem", "local_bytes",
+                     "blocks_per_sm"), vals))
+
+
 def mask_loss_fwd_cuda(src: torch.Tensor, gt_masks: torch.Tensor,
                        idx: torch.Tensor) -> torch.Tensor:
     """Launch the forward kernel: src f32 [B, NQ, h, w], gt_masks u8
@@ -137,13 +189,14 @@ def mask_loss_fwd_cuda(src: torch.Tensor, gt_masks: torch.Tensor,
     lib.nopesac_mask_loss_tiles.argtypes = [ctypes.c_int]
     lib.nopesac_mask_loss_tiles.restype = ctypes.c_int
     tiles = lib.nopesac_mask_loss_tiles(h)
+    work = _work(b * nq, dev)
     partials = torch.empty((b * nq, tiles, 4), dtype=torch.float32, device=dev)
     out = torch.empty((b * nq, 4), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch("nopesac_mask_loss_fwd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+        _launch("nopesac_mask_loss_fwd", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
                 + [ctypes.c_void_p], src.data_ptr(), masks.data_ptr(), idx.data_ptr(),
-                partials.data_ptr(), out.data_ptr(), b * nq, h, w, stream)
+                work.data_ptr(), partials.data_ptr(), out.data_ptr(), b * nq, h, w, stream)
     LAUNCHES.bump(KERNEL_FWD)
     return out
 
@@ -156,12 +209,13 @@ def mask_loss_bwd_cuda(src: torch.Tensor, gt_masks: torch.Tensor, idx: torch.Ten
     dev = src.device
     src, masks = src.contiguous(), gt_masks.contiguous()
     grad = grad.to(torch.float32).contiguous()
-    dsrc = torch.empty_like(src)
+    dsrc = torch.empty_like(src)  # the kernel writes the unmatched pairs' zeros
+    work = _work(b * nq, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch("nopesac_mask_loss_bwd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+        _launch("nopesac_mask_loss_bwd", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
                 + [ctypes.c_void_p], src.data_ptr(), masks.data_ptr(), idx.data_ptr(),
-                grad.data_ptr(), dsrc.data_ptr(), b * nq, h, w, stream)
+                work.data_ptr(), grad.data_ptr(), dsrc.data_ptr(), b * nq, h, w, stream)
     LAUNCHES.bump(KERNEL_BWD)
     return dsrc
 

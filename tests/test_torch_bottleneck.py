@@ -78,6 +78,39 @@ def test_cuda_wrapper_takes_only_cuda_tensors():
                                        torch.from_numpy(shift))
 
 
+# the eight shapes of the fused-tail eval batch (8 images of 480x640):
+# (Cin, Cout, P) of conv1 and conv3 per stage
+EVAL_SHAPES = [(cin, cout, h * w)
+               for h, w, width, mid in ((120, 160, 256, 64), (60, 80, 512, 128),
+                                        (30, 40, 1024, 256), (15, 20, 2048, 512))
+               for cin, cout in ((width, mid), (mid, width))]
+
+
+@pytest.mark.parametrize("cin,cout,p", EVAL_SHAPES)
+def test_b4_config_of_the_eval_shapes(cin, cout, p):
+    """Every main-path shape takes the vectorised variant, and its grid
+    reaches two waves of 132 SMs (at two blocks each) or its Cin is split."""
+    cfg = bottleneck.b4_config(8, cin, cout, p)
+    assert cfg["variant"] == "vec"
+    assert cfg["blocks"] == cfg["tiles"] * cfg["split"]
+    assert cfg["tiles"] >= 2 * bottleneck.SMS * bottleneck.BLOCKS_PER_SM or cfg["split"] > 1
+    assert cfg["blocks"] >= 2 * bottleneck.SMS
+    assert cfg["split"] == 1 or (cin % (16 * cfg["split"]) == 0
+                                 and cin // cfg["split"] >= bottleneck.MIN_PART)
+    assert cfg["bm"] == (64 if cout <= 64 else 128)
+
+
+@pytest.mark.parametrize("b,cin,cout,p,dtype,aligned", [
+    (1, 96, 72, 63, torch.float32, True),     # P % 4 != 0
+    (2, 64, 256, 300, torch.bfloat16, True),  # bf16 (the JAX test's shape)
+    (8, 512, 128, 4800, torch.float32, False),  # a pointer off 16 bytes
+    (2, 30, 64, 300, torch.float32, True),    # Cin % 4 != 0
+])
+def test_b4_config_takes_the_scalar_variant_off_the_fast_path(b, cin, cout, p, dtype, aligned):
+    cfg = bottleneck.b4_config(b, cin, cout, p, dtype, aligned)
+    assert cfg["variant"] == "scalar" and cfg["split"] == 1
+
+
 def _perturb_bn(tree, rng):
     """Non-trivial FrozenBN statistics and affines in a JAX backbone tree."""
     out = {}

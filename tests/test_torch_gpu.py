@@ -158,6 +158,25 @@ def test_mask_loss_kernel_matches_plain(cuda, b, nq, h, w, n_matched):
         assert float((k_grad - p_grad).abs().max()) <= MASK_GRAD_TOL * scale
 
 
+@pytest.mark.parametrize("b,nq,h,w,pairs", [
+    (2, 50, 24, 32, (0, 99)),           # only the first and the last pair matched
+    (3, 12, 30, 44, (0, 35)),           # h, w not multiples of the row tiles or of 32
+    (2, 12, 30, 44, tuple(range(24))),  # every pair matched
+])
+def test_mask_loss_kernel_matched_pairs_at_the_ends(cuda, b, nq, h, w, pairs):
+    src, masks, tgt, matched = mask_loss_inputs(cuda, 5, b, nq, h, w, 12)
+    matched = torch.zeros_like(matched)
+    matched.view(-1)[list(pairs)] = True
+    (k_sums, k_grad), (p_sums, p_grad) = _mask_loss_both(src, masks, tgt, matched,
+                                                         (0.7, -0.3, 0.11, 0.5))
+    torch.cuda.synchronize()
+    for k, p in zip(k_sums, p_sums):
+        torch.testing.assert_close(k, p, rtol=MASK_SUM_RTOL, atol=0)
+        assert (k[~matched] == 0).all()
+    assert (k_grad[~matched] == 0).all()
+    assert float((k_grad - p_grad).abs().max()) <= MASK_GRAD_TOL * float(p_grad.abs().max())
+
+
 def test_mask_loss_kernel_is_deterministic(cuda):
     src, masks, tgt, matched = mask_loss_inputs(cuda, 1, 32, 50, 120, 160, 12)
     runs = [_mask_loss_both(src, masks, tgt, matched, (1.0, 1.0, 1.0, 0.0))[0] for _ in range(2)]
@@ -194,19 +213,30 @@ def _b4_inputs(dev, seed, b, cin, cout, h, w, residual, dtype):
     return x, wt, scale, shift, res
 
 
-@pytest.mark.parametrize("b,cin,cout,h,w,residual,relu,dtype", [
-    (2, 64, 256, 15, 20, True, True, torch.float32),     # the JAX test's P = 300
-    (2, 64, 256, 15, 20, True, False, torch.bfloat16),
-    (2, 64, 256, 15, 20, False, True, torch.bfloat16),
-    (8, 256, 64, 120, 160, False, True, torch.float32),  # res2 conv1 of the eval path
-    (8, 512, 2048, 15, 20, True, True, torch.float32),   # res5 conv3
-    (1, 96, 72, 7, 9, True, True, torch.float32),        # ragged Cout and P
+# the eight shapes of the fused-tail eval batch: 8 images of 480x640, per
+# stage conv1 Cout -> Cout/4 with ReLU and conv3 Cout/4 -> Cout with the residual
+EVAL_SHAPES = [(8, cin, cout, h, w, residual)
+               for h, w, width, mid in ((120, 160, 256, 64), (60, 80, 512, 128),
+                                        (30, 40, 1024, 256), (15, 20, 2048, 512))
+               for cin, cout, residual in ((width, mid, False), (mid, width, True))]
+
+
+@pytest.mark.parametrize("b,cin,cout,h,w,residual,relu,dtype,variant", [
+    (2, 64, 256, 15, 20, True, True, torch.float32, "vec"),       # the JAX test's P = 300
+    (2, 64, 256, 15, 20, True, False, torch.bfloat16, "scalar"),  # bf16: P = 300, 300 % 8 != 0
+    (2, 64, 256, 15, 20, False, True, torch.bfloat16, "scalar"),
+    (8, 256, 64, 120, 160, False, True, torch.float32, "vec"),    # res2 conv1 of the eval path
+    (8, 512, 2048, 15, 20, True, True, torch.float32, "vec"),     # res5 conv3
+    (1, 96, 72, 7, 9, True, True, torch.float32, "scalar"),       # ragged Cout, P = 63
+    (2, 96, 72, 7, 9, False, False, torch.float32, "scalar"),     # a tile across two images
 ])
-def test_bottleneck_kernel_matches_plain(cuda, b, cin, cout, h, w, residual, relu, dtype):
+def test_bottleneck_kernel_matches_plain(cuda, b, cin, cout, h, w, residual, relu, dtype,
+                                         variant):
     x, wt, scale, shift, res = _b4_inputs(cuda, 0, b, cin, cout, h, w, residual, dtype)
     before = LAUNCHES["bottleneck_tail"]
     got = bottleneck.conv1x1_bn_act(x, wt, scale, shift, residual=res, relu=relu)
     assert LAUNCHES["bottleneck_tail"] == before + 1
+    assert bottleneck.last_config["variant"] == variant
     ref = bottleneck.conv1x1_bn_act_plain(x, wt, scale, shift, residual=res, relu=relu)
     assert got.dtype == dtype and got.shape == (b, cout, h, w)
     diff = (got.float() - ref.float()).abs()
@@ -216,6 +246,19 @@ def test_bottleneck_kernel_matches_plain(cuda, b, cin, cout, h, w, residual, rel
         assert float(diff.max()) <= B4_F32_TOL * float(ref.abs().max())
     if relu:
         assert bool((got >= 0).all())
+
+
+@pytest.mark.parametrize("b,cin,cout,h,w,residual", EVAL_SHAPES)
+def test_bottleneck_kernel_at_the_eval_shapes(cuda, b, cin, cout, h, w, residual):
+    x, wt, scale, shift, res = _b4_inputs(cuda, 1, b, cin, cout, h, w, residual, torch.float32)
+    got = bottleneck.conv1x1_bn_act(x, wt, scale, shift, residual=res)
+    cfg = dict(bottleneck.last_config)
+    assert cfg == bottleneck.b4_config(b, cin, cout, h * w) and cfg["variant"] == "vec"
+    ref = bottleneck.conv1x1_bn_act_plain(x, wt, scale, shift, residual=res)
+    assert float((got - ref).abs().max()) <= B4_F32_TOL * float(ref.abs().max())
+    if cfg["split"] > 1:  # the cluster reduction runs in a fixed order
+        again = bottleneck.conv1x1_bn_act(x, wt, scale, shift, residual=res)
+        assert torch.equal(got, again)
 
 
 def test_bottleneck_kernel_refuses_autograd(cuda):

@@ -117,6 +117,20 @@ def test_b3_plain_rejects_other_ratios():
         mask_loss.fused_focal_dice(t(src)[..., :8], t(masks), t(tgt).long(), t(matched))
 
 
+@pytest.mark.parametrize("h", [1, 2, 3, 30])
+@pytest.mark.parametrize("w", [1, 2, 3, 30])
+def test_b3_upsample4_adjoint_matches_autograd(h, w):
+    """The constant 8-tap adjoint table with its edge fix-ups (the backward
+    kernel's) is the transpose of upsample4; f64, so only rounding differs."""
+    rng = np.random.default_rng(h * 100 + w)
+    x = torch.from_numpy(rng.normal(size=(2, h, w))).requires_grad_(True)
+    g = torch.from_numpy(rng.normal(size=(2, 4 * h, 4 * w)))
+    (mask_loss.upsample4(x) * g).sum().backward()
+    got = mask_loss.upsample4_adjoint(g)
+    assert got.shape == x.shape
+    assert float((got - x.grad).abs().max()) <= 1e-12
+
+
 # --------------------------------------------------------------------------
 # criterion
 # --------------------------------------------------------------------------
