@@ -7,9 +7,15 @@ Phases, in order; any failure exits non-zero before the last line:
   1. device: name, capability (>= 9.0) and nvidia-smi's name and power limit;
   2. build: every `nopesac_torch/ops/csrc/*.cu` with nvcc, in parallel;
   3. B1 (select_maps) at the main-path shapes, kernel against its plain
-     PyTorch version: seg, max and the counts bit-equal, sums to rtol 1e-5;
-  4. B2 (sinkhorn) at [4, 50, 50], 200 iterations, masked: kernel against its
-     plain version, atol 1e-4 where |ref| < 1e4;
+     PyTorch version: seg, max and the counts bit-equal, sums to rtol 1e-5,
+     two runs bit-equal, the vec variant; its registers, shared memory,
+     spills and blocks per SM; one device kernel per call (torch.profiler);
+  4. B2 (sinkhorn) at [4, 50, 50], 200 iterations, masked, from the scores
+     to the log coupling: kernel against its plain version, atol 1e-4 where
+     |ref| < 1e4, two runs bit-equal, the register variant, one device
+     kernel per call; timed from scores to output, the kernel's own device
+     time beside it, and an estimate of its dependency floor (assumed
+     latencies, not measured; printed, not in the kernels line);
   5. main path: the eval step built from configs/inference_mp3d.yaml with
      seeded random weights, a warm-up batch, then 3 batches of 4 pairs of
      480x640 uint8 images; output shapes, dtypes and finiteness are checked
@@ -78,7 +84,15 @@ path (phase 12). B4's times are per eval batch: the sum over its 24 calls.
 Kernel times are CUDA-event means over many warm launches. `bound_ms` is the
 larger of bytes moved / 3.35 TB/s and f32 operations / 67 TFLOP/s (H100 SXM
 published peaks).
+
+    python3 chip_smoke.py --time-tree DIR
+
+times B1 and B2 of the port in DIR (a checkout of any of its commits, e.g. a
+parent unpacked with `git archive`) on phase 3's and 4's inputs, through the
+functions the eval path calls, with this script's timing code, and prints
+one JSON line; run it for a parent and a change in turns in one call.
 """
+import argparse
 import copy
 import json
 import math
@@ -109,6 +123,14 @@ MASK_FWD_OPS = 39
 MASK_BWD_OPS = 55
 LOSS_ABS, LOSS_REL = 1e-4, 1e-3  # tests/test_torch_train.py
 MATCH_GAP = 1e-3
+# An estimate of B2's dependency floor, not a measurement: assumed latencies
+# in cycles of the steps of one half-iteration's chain on the H100: a shared
+# load, a shuffle, an f32 add/max, the IEEE expf (7 dependent instructions
+# around one MUFU.EX2 in the compiled kernel's SASS) and logf (~18 dependent
+# ones), a block barrier; and the SM clock under load that the kernel
+# table's rates use
+SINKHORN_LATENCY = {"lds": 30, "shfl": 25, "alu": 4, "expf": 46, "logf": 80, "barrier": 30}
+SM_CLOCK_HZ = 1.755e9
 # B4 at 480x640 with 8 images (4 pairs, both views): per stage the map size,
 # the block's width and bottleneck width, and its identity blocks
 B4_STAGES = (("res2", 120, 160, 256, 64, 2), ("res3", 60, 80, 512, 128, 3),
@@ -141,6 +163,23 @@ def cuda_ms(torch, fn, warm=3, iters=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_events(torch, fn, calls=5):
+    """Device events (kernels, memcpy, memset) per call of fn, their names and
+    their summed device ms per call, under torch.profiler after a warm call:
+    how many launches a wrapper really costs."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evts = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"per_call": sum(e.count for e in evts) / calls,
+            "device_ms": sum(e.self_device_time_total for e in evts) / 1e3 / calls,
+            "names": sorted({e.key[:60] for e in evts})}
 
 
 def alternating_ms(torch, fns, rounds=10, iters=2):
@@ -190,14 +229,46 @@ def select_inputs(torch, gen, b, nq, h, w, dev):
     return prob, score, valid
 
 
+def select_case(torch, dev):
+    """Phase 3's inputs: the eval batch's 8 views of 50 queries at 120x160,
+    bf16 probabilities."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prob, score, valid = select_inputs(torch, gen, 2 * N_PAIRS, 50, 120, 160, dev)
+    return prob.to(torch.bfloat16), score, valid
+
+
+def sinkhorn_case(torch, dev):
+    """Phase 4's inputs: scores [4, 50, 50], masked rows and columns, bin
+    score 1."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    scores = torch.randn((N_PAIRS, 50, 50), generator=gen, device=dev) * 3.0
+    row = torch.rand((N_PAIRS, 50), generator=gen, device=dev) > 0.4
+    col = torch.rand((N_PAIRS, 50), generator=gen, device=dev) > 0.4
+    return scores, torch.tensor(1.0, device=dev), row, col
+
+
+def eval_path_calls(torch, dev):
+    """B1 and B2 on phase 3's and 4's inputs through the functions the eval
+    path calls, which every commit of the port has (so `--time-tree` times
+    a parent by the same code)."""
+    from nopesac_torch.ops import select, sinkhorn
+    prob, score, valid = select_case(torch, dev)
+    scores, alpha, row, col = sinkhorn_case(torch, dev)
+    _, _, h, w = prob.shape
+    return {"select_maps": lambda: select.fused_select_maps(prob, score, valid, 0.5, 4 * h, 4 * w),
+            "sinkhorn": lambda: sinkhorn.log_optimal_transport_masked(scores, alpha,
+                                                                      SINKHORN_ITERS, row, col)}
+
+
 def check_select(torch, dev):
     from nopesac_torch.ops import select
-    b, nq, h, w, out_h, out_w, thr = 2 * N_PAIRS, 50, 120, 160, 480, 640, 0.5
-    gen = torch.Generator(device=dev).manual_seed(1)
-    prob, score, valid = select_inputs(torch, gen, b, nq, h, w, dev)
-    prob16 = prob.to(torch.bfloat16)
+    prob16, score, valid = select_case(torch, dev)
+    b, nq, h, w = prob16.shape
+    out_h, out_w, thr = 4 * h, 4 * w, 0.5
     seg_k, mx_k, st_k = select.select_maps_cuda(prob16, score, valid, thr, out_h, out_w)
+    cfg = dict(select.last_config)
     seg_p, mx_p, st_p = select.select_maps_plain(prob16.float(), score, valid, thr, out_h, out_w)
+    again = select.select_maps_cuda(prob16, score, valid, thr, out_h, out_w)
     torch.cuda.synchronize()
     n_seg = int((seg_k != seg_p).sum())
     n_mx = int((mx_k != mx_p).sum())
@@ -206,13 +277,23 @@ def check_select(torch, dev):
     n_cnt = int((st_k[:, counts] != st_p[:, counts]).sum())
     sums = [1, 2, 4, 5]
     sum_ok = torch.allclose(st_k[:, sums], st_p[:, sums], rtol=1e-5, atol=0.0)
+    same = all(torch.equal(x, y) for x, y in zip((seg_k, mx_k, st_k), again))
     print(f"[B1 select_maps] seg mismatches {n_seg}, max mismatches {n_mx} "
           f"(max |diff| {err:.3e}), count mismatches {n_cnt}, sums within rtol 1e-5: {sum_ok}; "
-          f"all-invalid view labels all 0: {bool((seg_k[0] == 0).all())}")
-    if n_seg or n_mx or n_cnt or not sum_ok or not bool((seg_k[0] == 0).all()):
-        raise SmokeFailure("B1 kernel disagrees with its plain version")
-    ms = cuda_ms(torch, lambda: select.select_maps_cuda(prob16, score, valid, thr, out_h, out_w),
-                 iters=50)
+          f"all-invalid view labels all 0: {bool((seg_k[0] == 0).all())}; two runs bit-equal: "
+          f"{same}; variant {cfg}")
+    if (n_seg or n_mx or n_cnt or not sum_ok or not bool((seg_k[0] == 0).all()) or not same
+            or cfg["variant"] != "vec"):
+        raise SmokeFailure("B1 kernel disagrees with its plain version (or leaves its vec "
+                           "variant at the main-path shape)")
+    print(f"[B1 select_maps] kernel: {select.kernel_attributes('vec', nq)} (cudaFuncGetAttributes)")
+    call = eval_path_calls(torch, dev)["select_maps"]
+    prof = device_events(torch, call)
+    print(f"[B1 select_maps] torch.profiler: {prof['per_call']:g} device events per call "
+          f"({prof['names']}), {prof['device_ms']:.4f} device ms per call")
+    if prof["per_call"] != 1:
+        raise SmokeFailure("B1 must be one device kernel per call")
+    ms = cuda_ms(torch, call, iters=50)
     plain_ms = cuda_ms(torch, lambda: select.select_maps_plain(
         prob16.float(), score, valid, thr, out_h, out_w), warm=2, iters=5)
     n_bytes = (b * nq * h * w * 2 + b * nq * (4 + 1)        # prob bf16, score, valid
@@ -225,41 +306,67 @@ def check_select(torch, dev):
           f"({by}: {n_bytes} B, {n_ops:.0f} flop)")
     return {"name": "select_maps", "route": "cuda", "source": "nopesac_torch/ops/csrc/select.cu",
             "replaces": "nopesac_tpu/ops/select_pallas.py:213", "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "device_events_per_call": prof["per_call"]}
+
+
+def sinkhorn_floor_ms(iters, group):
+    """An estimate of B2's dependency floor: 2 * iters half-iterations, each a
+    chain of a shared-memory load of u or v, two log2(group)-level shuffle
+    trees (a shuffle and a max or add per level), an expf, a logf and a
+    barrier, at the assumed latencies of SINKHORN_LATENCY (cycles) and
+    SM_CLOCK_HZ."""
+    lat = SINKHORN_LATENCY
+    levels = int(math.log2(group))
+    cycles = (lat["lds"] + 2 * levels * (lat["shfl"] + lat["alu"]) + lat["expf"] + lat["logf"]
+              + lat["barrier"] + 4 * lat["alu"])
+    return 2 * iters * cycles / SM_CLOCK_HZ * 1e3, cycles
 
 
 def check_sinkhorn(torch, dev):
-    from nopesac_torch.core.sinkhorn import masked_ot_prologue
     from nopesac_torch.ops import sinkhorn
-    b, m, n, iters = N_PAIRS, 50, 50, SINKHORN_ITERS
-    gen = torch.Generator(device=dev).manual_seed(2)
-    scores = torch.randn((b, m, n), generator=gen, device=dev) * 3.0
-    row = torch.rand((b, m), generator=gen, device=dev) > 0.4
-    col = torch.rand((b, n), generator=gen, device=dev) > 0.4
-    z, mu, nu, norm = masked_ot_prologue(scores, torch.tensor(1.0, device=dev), row, col)
-    got = sinkhorn.sinkhorn_cuda(z, mu, nu, norm, iters)
-    ref = sinkhorn.sinkhorn_plain(z, mu, nu, norm, iters)
+    scores, alpha, row, col = sinkhorn_case(torch, dev)
+    (b, m, n), iters = scores.shape, SINKHORN_ITERS
+    got = sinkhorn.log_optimal_transport_masked(scores, alpha, iters, row, col)
+    cfg = dict(sinkhorn.last_config)
+    ref = sinkhorn.sinkhorn_plain(scores, alpha, iters, row, col)
+    again = sinkhorn.log_optimal_transport_masked(scores, alpha, iters, row, col)
     torch.cuda.synchronize()
     # 200 dependent iterations compound ulp differences of expf/logf and of
     # the reduction order; the -1e5 masked band is left out
     keep = ref.abs() < 1e4
     err = float((got - ref).abs()[keep].max())
     print(f"[B2 sinkhorn] max |kernel - plain| {err:.3e} over {int(keep.sum())} entries "
-          f"(finite: {bool(torch.isfinite(got).all())})")
-    if not err <= 1e-4 or not bool(torch.isfinite(got).all()):
+          f"(finite: {bool(torch.isfinite(got).all())}); two runs bit-equal: "
+          f"{torch.equal(got, again)}; config {cfg}")
+    if not err <= 1e-4 or not bool(torch.isfinite(got).all()) or not torch.equal(got, again):
         raise SmokeFailure("B2 kernel disagrees with its plain version")
-    ms = cuda_ms(torch, lambda: sinkhorn.sinkhorn_cuda(z, mu, nu, norm, iters), iters=50)
-    plain_ms = cuda_ms(torch, lambda: sinkhorn.sinkhorn_plain(z, mu, nu, norm, iters),
+    if cfg["variant"] != "register":
+        raise SmokeFailure(f"B2 took its {cfg['variant']} variant at [{b}, {m + 1}, {n + 1}]; the "
+                           f"main-path shape must take the register one")
+    # scores to output, through the wrapper the matching head calls
+    call = eval_path_calls(torch, dev)["sinkhorn"]
+    prof = device_events(torch, call)
+    print(f"[B2 sinkhorn] torch.profiler: {prof['per_call']:g} device events per call "
+          f"({prof['names']}), kernel {prof['device_ms']:.4f} device ms per call")
+    if prof["per_call"] != 1:
+        raise SmokeFailure("B2 must be one device kernel per call, from scores to output")
+    ms = cuda_ms(torch, call, iters=50)
+    plain_ms = cuda_ms(torch, lambda: sinkhorn.sinkhorn_plain(scores, alpha, iters, row, col),
                        warm=1, iters=3)
     r, c = m + 1, n + 1
-    n_bytes = 4 * (2 * b * r * c + b * (r + c) + b)  # z in, out, marginals, norm
-    n_ops = b * iters * 2 * r * c * 5                 # add, max, sub, exp, sum per entry and pass
+    n_bytes = 4 * b * m * n + b * (m + n) + 4 + 4 * b * r * c  # scores, masks, alpha, out
+    n_ops = b * iters * 2 * r * c * 5                          # add, max, sub, exp, sum per entry and pass
     bms, by = bound_ms(n_bytes, n_ops)
-    print(f"[B2 sinkhorn] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.6f} ms "
-          f"({by}: {n_bytes} B, {n_ops} flop)")
+    floor_ms, cycles = sinkhorn_floor_ms(iters, sinkhorn.GROUP)
+    print(f"[B2 sinkhorn] scores to output {ms:.4f} ms ({sinkhorn.GROUP} lanes per row), kernel "
+          f"alone {prof['device_ms']:.4f} device ms, plain {plain_ms:.4f} ms, bound {bms:.6f} ms "
+          f"({by}: {n_bytes} B, {n_ops} flop); dependency floor estimate {floor_ms:.4f} ms "
+          f"({cycles} cycles per half-iteration at assumed latencies, not measured)")
     return {"name": "sinkhorn", "route": "cuda", "source": "nopesac_torch/ops/csrc/sinkhorn.cu",
             "replaces": "nopesac_tpu/ops/sinkhorn_pallas.py:87", "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "kernel_device_ms": prof["device_ms"], "device_events_per_call": prof["per_call"]}
 
 
 def check_outputs(torch, out, b, h, w, nq):
@@ -973,7 +1080,28 @@ def numpy_tree(tree):
     return tree.cpu().numpy()
 
 
-def main():
+def time_tree(torch, tree):
+    """`--time-tree`: B1 and B2 of the port in `tree` timed by this script
+    (CUDA-event mean over 50 warm calls, device events under the profiler);
+    one JSON line with the card's name and power limit."""
+    dev = torch.device("cuda", 0)
+    _, card = phase_device(torch)
+    result = {"tree": os.path.relpath(tree, REPO), "card": card}
+    with torch.inference_mode():
+        for name, call in eval_path_calls(torch, dev).items():
+            prof = device_events(torch, call)
+            result[name] = {"ms": cuda_ms(torch, call, iters=50),
+                            "device_events_per_call": prof["per_call"],
+                            "device_ms": prof["device_ms"]}
+    print(json.dumps(result))
+    return 0
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--time-tree", default=None, metavar="DIR",
+                    help="only time B1 and B2 of the port in DIR (see above)")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -983,13 +1111,20 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
+    tree = os.path.abspath(args.time_tree or REPO)
+    sys.path.insert(0, tree)
     try:
-        import nopesac_torch  # noqa: F401
+        import nopesac_torch
     except ImportError as e:
-        print(f"chip_smoke: the nopesac_torch package is missing next to this script ({e})",
+        print(f"chip_smoke: the nopesac_torch package is missing in {tree} ({e})",
               file=sys.stderr)
         return 2
+    if not os.path.abspath(nopesac_torch.__file__).startswith(tree + os.sep):
+        print(f"chip_smoke: imported {nopesac_torch.__file__}, not the package in {tree}",
+              file=sys.stderr)
+        return 2
+    if args.time_tree:
+        return time_tree(torch, tree)
     from nopesac_torch.utils.device import set_f32_parity
     set_f32_parity()
     dev = torch.device("cuda", 0)

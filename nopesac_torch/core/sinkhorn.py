@@ -4,7 +4,9 @@ plain loop (counterpart of the JAX package's `core/sinkhorn.py`).
 The masking algebra follows the reference exactly: invalid rows/cols get a
 finite -1e5 score and a -1e5 log-marginal (never -inf), which makes their
 u/v updates inert while keeping every logsumexp finite. The CUDA kernel
-(`ops/sinkhorn.py`) runs the iterations on the output of the same prologue.
+(`ops/sinkhorn.py`) computes the whole function in one launch, prologue
+included; this module is its plain version, and training's differentiable
+path.
 """
 from __future__ import annotations
 

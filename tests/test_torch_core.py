@@ -148,9 +148,80 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     prob, score, valid = _select_inputs(0)
     with pytest.raises(ValueError):
         select.select_maps_cuda(t(prob).to(torch.bfloat16), t(score), t(valid), 0.5, 96, 128)
-    z = torch.zeros((1, 3, 3))
-    with pytest.raises(ValueError):
-        sinkhorn.sinkhorn_cuda(z, torch.zeros(1, 3), torch.zeros(1, 3), torch.zeros(1), 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        sinkhorn.sinkhorn_cuda(torch.zeros((1, 3, 3)), torch.tensor(1.0), 2)
+
+
+# CPU F.interpolate rounds the interior row taps in another order than ATen's
+# CUDA kernel and csrc/select.cu where a map is small (h or w < 4 here): up to
+# 2 f32 ulps apart there; at 24x32 it takes the same form, and at the edges
+# (rows and columns 0, 1: weights (1, 0)) every form gives the same value
+PHASE_ULPS = 2
+
+
+def _wide_bf16(rng, shape):
+    """bf16 probabilities of very different magnitudes side by side, so that
+    the 2-tap sums round (sums of like magnitudes are exact in f32)."""
+    big = rng.uniform(0.5, 1.0, shape)
+    tiny = rng.uniform(0.5, 1.0, shape) * 2.0 ** -rng.integers(8, 30, shape)
+    x = np.where(rng.random(shape) < 0.5, big, tiny).astype(np.float32)
+    return torch.from_numpy(x).to(torch.bfloat16).to(torch.float32)
+
+
+@pytest.mark.parametrize("h,w", [(h, w) for h in (1, 2, 3) for w in (1, 2, 3)] + [(24, 32)])
+def test_upsample4_phase_plain_matches_interpolate(h, w):
+    x = _wide_bf16(np.random.default_rng(h * 10 + w), (16, h, w))
+    got = select.upsample4_phase_plain(x)
+    ref = torch.nn.functional.interpolate(x[None], size=(4 * h, 4 * w), mode="bilinear",
+                                          align_corners=False)[0]
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    ulps = ((got - ref).abs().double().numpy() / np.spacing(ref.abs().numpy())).max()
+    assert ulps <= PHASE_ULPS, ulps
+    assert torch.equal(got[:, :2], ref[:, :2]) and torch.equal(got[:, :, :2], ref[:, :, :2])
+    if h * w > 9:
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("rows,cols,want", [
+    (51, 51, {"variant": "register", "values": 7, "threads": 416}),  # main path
+    (2, 2, {"variant": "register", "values": 1, "threads": 32}),
+    (64, 3, {"variant": "register", "values": 8, "threads": 512}),
+    (5, 64, {"variant": "register", "values": 8, "threads": 512}),
+    (101, 38, {"variant": "general", "values": 0, "threads": 512,
+               "smem": 4 * (101 * 38 + 101 + 38)}),
+    (3, 65, {"variant": "general", "values": 0, "threads": 512, "smem": 4 * (3 * 65 + 3 + 65)}),
+])
+def test_sinkhorn_config(rows, cols, want):
+    assert sinkhorn.sinkhorn_config(rows, cols) == want
+
+
+@pytest.mark.parametrize("n", [1, 8, 9, 33, 64])
+def test_sinkhorn_register_variant_fits_one_block(n):
+    """Every shape the register variant takes fits one block of <= 1024
+    threads, with a group of GROUP lanes per row and per column."""
+    cfg = sinkhorn.sinkhorn_config(n, n)
+    assert cfg["variant"] == "register"
+    assert cfg["values"] * sinkhorn.GROUP >= n > (cfg["values"] - 1) * sinkhorn.GROUP
+    assert sinkhorn.GROUP * n <= cfg["threads"] <= 1024 and cfg["threads"] % 32 == 0
+
+
+@pytest.mark.parametrize("what,error", [
+    ("f64 scores", TypeError), ("2-d scores", TypeError), ("row mask shape", ValueError),
+    ("column mask dtype", TypeError), ("two bin scores", ValueError),
+    ("negative iterations", ValueError), ("cpu", ValueError),
+])
+def test_sinkhorn_kernel_argument_checks(what, error):
+    scores, alpha = torch.zeros((2, 4, 5)), torch.tensor(1.0)
+    rows, cols = torch.ones((2, 4), dtype=torch.bool), torch.ones((2, 5), dtype=torch.bool)
+    args = {"f64 scores": (scores.double(), alpha, 5, rows, cols),
+            "2-d scores": (scores[0], alpha, 5, None, None),
+            "row mask shape": (scores, alpha, 5, rows[:, :3], cols),
+            "column mask dtype": (scores, alpha, 5, rows, cols.float()),
+            "two bin scores": (scores, torch.ones(2), 5, rows, cols),
+            "negative iterations": (scores, alpha, -1, rows, cols),
+            "cpu": (scores, alpha, 5, rows, cols)}[what]
+    with pytest.raises(error):
+        sinkhorn.sinkhorn_cuda(*args)
 
 
 def test_missing_nvcc_is_an_error(monkeypatch, tmp_path):

@@ -12,7 +12,6 @@ import numpy as np
 import pytest
 import torch
 
-from nopesac_torch.core.sinkhorn import masked_ot_prologue
 from nopesac_torch.models.resnet import ResNet
 from nopesac_torch.ops import bottleneck, mask_loss, select, sinkhorn
 from nopesac_torch.utils.device import LAUNCHES
@@ -50,36 +49,107 @@ def _select_inputs(dev, seed, b, nq, h, w):
     return prob, score, valid
 
 
-@pytest.mark.parametrize("seed,b,nq,h,w", [(0, 8, 50, 120, 160), (1, 3, 50, 120, 160),
-                                           (2, 2, 12, 24, 32)])
-def test_select_kernel_bit_equal_to_plain(cuda, seed, b, nq, h, w):
+@pytest.mark.parametrize("seed,b,nq,h,w,variant", [
+    (0, 8, 50, 120, 160, "vec"),   # the eval batch: 4 pairs, both views
+    (1, 3, 50, 120, 160, "vec"),
+    (2, 2, 12, 24, 32, "vec"),
+    (3, 2, 12, 24, 33, "scalar"),  # a ragged tile, w % 8 != 0
+    (4, 2, 12, 1, 40, "vec"),      # h = 1
+    (5, 2, 12, 24, 1, "scalar"),   # w = 1
+    (6, 2, 12, 2, 16, "vec"),      # h = 2
+    (7, 1, 150, 8, 16, "vec"),     # 150 queries: the last block sums the stats in one part
+])
+def test_select_kernel_bit_equal_to_plain(cuda, seed, b, nq, h, w, variant):
     prob, score, valid = _select_inputs(cuda, seed, b, nq, h, w)
     before = LAUNCHES["select_maps"]
     got = select.fused_select_maps(prob, score, valid, 0.5, 4 * h, 4 * w)
     assert LAUNCHES["select_maps"] == before + 1
+    assert select.last_config["variant"] == variant
     ref = select.select_maps_plain(prob.float(), score, valid, 0.5, 4 * h, 4 * w)
     assert torch.equal(got[0], ref[0]), int((got[0] != ref[0]).sum())
     assert torch.equal(got[1], ref[1]), int((got[1] != ref[1]).sum())
     assert (got[0][0] == 0).all()
     assert torch.equal(got[2][:, [0, 3, 6]], ref[2][:, [0, 3, 6]])
     torch.testing.assert_close(got[2][:, [1, 2, 4, 5]], ref[2][:, [1, 2, 4, 5]], rtol=1e-5, atol=0)
+    again = select.fused_select_maps(prob, score, valid, 0.5, 4 * h, 4 * w)
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("masked", [False, True])
-def test_sinkhorn_kernel_matches_plain(cuda, masked):
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    scores = torch.randn((4, 50, 50), generator=gen, device=cuda) * 3
-    row = torch.rand((4, 50), generator=gen, device=cuda) > 0.4 if masked else None
-    col = torch.rand((4, 50), generator=gen, device=cuda) > 0.4 if masked else None
+def test_select_kernel_is_one_device_kernel(cuda):
+    prob, score, valid = _select_inputs(cuda, 0, 8, 50, 120, 160)
+    from chip_smoke import device_events
+    events = device_events(torch, lambda: select.select_maps_cuda(prob, score, valid, 0.5,
+                                                                  480, 640))
+    assert events["per_call"] == 1, events
+
+
+def _ot_inputs(dev, seed, b, m, n, masked):
+    rng = np.random.default_rng(seed)
+    scores = torch.from_numpy(rng.normal(0, 3, (b, m, n)).astype(np.float32)).to(dev)
+    if not masked:
+        return scores, None, None
+    row = torch.from_numpy(rng.random((b, m)) > 0.4).to(dev)
+    col = torch.from_numpy(rng.random((b, n)) > 0.4).to(dev)
+    return scores, row, col
+
+
+def _assert_ot_close(got, ref):
+    """Non-finite entries where the plain version's are, and equal; finite
+    ones within OT_KERNEL_TOL outside the -1e5 masked band."""
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    inf = torch.isinf(ref)
+    assert torch.equal(torch.isinf(got), inf) and torch.equal(got[inf], ref[inf])
+    keep = torch.isfinite(ref) & (ref.abs() < 1e4)
+    if keep.any():
+        assert float((got - ref).abs()[keep].max()) <= OT_KERNEL_TOL
+
+
+@pytest.mark.parametrize("b,m,n,masked,iters,variant", [
+    (1, 1, 1, False, 200, "register"),
+    (4, 50, 50, False, 200, "register"),
+    (4, 50, 50, True, 200, "register"),  # the eval batch's shape
+    (3, 63, 20, True, 200, "register"),  # 64 rows: the most values per lane
+    (2, 100, 37, True, 200, "general"),
+    (1, 200, 100, True, 20, "general"),  # z over 48 KB of shared memory
+    (4, 50, 50, True, 0, "register"),
+    (4, 50, 50, True, 1, "register"),
+])
+def test_sinkhorn_kernel_matches_plain(cuda, b, m, n, masked, iters, variant):
+    scores, row, col = _ot_inputs(cuda, 0, b, m, n, masked)
+    alpha = torch.tensor(1.0, device=cuda)
     before = LAUNCHES["sinkhorn"]
-    got = sinkhorn.log_optimal_transport_masked(scores, torch.tensor(1.0, device=cuda), 200,
-                                                row, col)
+    got = sinkhorn.sinkhorn_cuda(scores, alpha, iters, row, col)
     assert LAUNCHES["sinkhorn"] == before + 1
-    z, mu, nu, norm = masked_ot_prologue(scores, torch.tensor(1.0, device=cuda), row, col)
-    ref = sinkhorn.sinkhorn_plain(z, mu, nu, norm, 200)
-    keep = ref.abs() < 1e4  # leave out the -1e5 masked band
+    assert sinkhorn.last_config["variant"] == variant
+    assert sinkhorn.last_config == sinkhorn.sinkhorn_config(m + 1, n + 1)
+    ref = sinkhorn.sinkhorn_plain(scores, alpha, iters, row, col)
+    assert got.shape == (b, m + 1, n + 1)
+    _assert_ot_close(got, ref)
     assert torch.isfinite(got).all()
-    assert float((got - ref).abs()[keep].max()) <= OT_KERNEL_TOL
+    assert torch.equal(got, sinkhorn.sinkhorn_cuda(scores, alpha, iters, row, col))
+
+
+@pytest.mark.parametrize("m,n", [(50, 50), (100, 37)])
+def test_sinkhorn_kernel_without_valid_rows_or_columns(cuda, m, n):
+    """Batch element 1 has no valid row, 2 no valid column, 3 neither: the
+    kernel's infinities and NaNs sit where the plain version's do."""
+    scores, row, col = _ot_inputs(cuda, 1, 4, m, n, True)
+    row[1], col[2], row[3], col[3] = False, False, False, False
+    alpha = torch.tensor(0.7, device=cuda)
+    got = sinkhorn.log_optimal_transport_masked(scores, alpha, 200, row, col)
+    ref = sinkhorn.sinkhorn_plain(scores, alpha, 200, row, col)
+    assert not torch.isfinite(ref[1:]).all()
+    _assert_ot_close(got, ref)
+
+
+def test_sinkhorn_kernel_is_one_device_kernel(cuda):
+    scores, row, col = _ot_inputs(cuda, 2, 4, 50, 50, True)
+    alpha = torch.tensor(1.0, device=cuda)
+    from chip_smoke import device_events
+    events = device_events(
+        torch, lambda: sinkhorn.log_optimal_transport_masked(scores, alpha, 200, row, col))
+    assert events["per_call"] == 1, events
 
 
 def test_select_kernel_rejects_other_ratios(cuda):
@@ -90,12 +160,11 @@ def test_select_kernel_rejects_other_ratios(cuda):
 
 def test_sinkhorn_kernel_refuses_autograd(cuda):
     scores = torch.randn((2, 8, 8), device=cuda, requires_grad=True)
-    z, mu, nu, norm = masked_ot_prologue(scores, torch.tensor(1.0, device=cuda), None, None)
+    alpha = torch.tensor(1.0, device=cuda)
     with pytest.raises(RuntimeError, match="no backward"):
-        sinkhorn.sinkhorn_cuda(z, mu, nu, norm, 5)
+        sinkhorn.sinkhorn_cuda(scores, alpha, 5)
     with torch.no_grad():
-        z, mu, nu, norm = masked_ot_prologue(scores, torch.tensor(1.0, device=cuda), None, None)
-        assert torch.isfinite(sinkhorn.sinkhorn_cuda(z, mu, nu, norm, 5)).all()
+        assert torch.isfinite(sinkhorn.sinkhorn_cuda(scores, alpha, 5)).all()
 
 
 def mask_loss_inputs(dev, seed, b, nq, h, w, n_matched, grid=(3, 4)):
