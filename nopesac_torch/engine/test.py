@@ -10,9 +10,12 @@ The CLI takes `test_NopeSAC.py`'s flags. It evaluates cfg.DATASETS.TEST[0] on
 one JSON line. With TEST.EVAL_FULL_SCENE it writes
 `NopeSAC_instances_predictions.pth` and `continuous.pkl` into OUTPUT_DIR,
 which `eval.py` reads. MODEL.WEIGHTS names a torch checkpoint (`.pth`: a
-state_dict, or `{"model": state_dict}`), loaded strictly; without one the
-model gets seeded random weights (`--seed`). Checkpoint resume, evaluation
-across processes and the GT-matcher / SP-top-camera ablations are not ported.
+state_dict, or `{"model": state_dict}`), loaded strictly by
+`engine/checkpoint.py:load_weights`; without one the model gets seeded random
+weights (`--seed`). With `--resume` the latest training checkpoint in
+OUTPUT_DIR (`last_checkpoint`) takes MODEL.WEIGHTS' place when there is one.
+Evaluation across processes and the GT-matcher / SP-top-camera ablations are
+not ported.
 """
 from __future__ import annotations
 
@@ -36,29 +39,21 @@ from ..evaluation.evaluator import MP3DEvaluator
 from ..evaluation.postprocess import postprocess_batch
 from ..models.nopesac import PlaneTRNopeSAC
 from ..utils.device import DeviceLike
+from .checkpoint import Checkpointer, load_weights
 from .predict import build_model_from_cfg, make_eval_step
 
 logger = logging.getLogger(__name__)
 
 
-def load_weights(model: PlaneTRNopeSAC, path: str) -> None:
-    """Load a torch checkpoint (a state_dict, or d2's {"model": state_dict})
-    into `model`, strictly."""
-    if not path.endswith(".pth"):
-        raise NotImplementedError(f"MODEL.WEIGHTS must name a torch .pth checkpoint, got {path}")
-    state = torch.load(path, map_location="cpu", weights_only=False)
-    if "model" in state:
-        state = state["model"]
-    model.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()}, strict=True)
-
-
-def build_eval_model(cfg: CfgNode, device: DeviceLike = None, seed: int = 0) -> PlaneTRNopeSAC:
-    """The model of `cfg` in eval mode with MODEL.WEIGHTS, or with seeded
-    random weights when the config names none."""
-    if cfg.MODEL.WEIGHTS:
+def build_eval_model(cfg: CfgNode, device: DeviceLike = None, seed: int = 0,
+                     weights: Optional[str] = None) -> PlaneTRNopeSAC:
+    """The model of `cfg` in eval mode with `weights` (default
+    MODEL.WEIGHTS), or with seeded random weights when there are none."""
+    weights = weights or cfg.MODEL.WEIGHTS
+    if weights:
         model = build_model_from_cfg(cfg, device=device)
-        load_weights(model, cfg.MODEL.WEIGHTS)
-        logger.info("loaded MODEL.WEIGHTS %s", cfg.MODEL.WEIGHTS)
+        load_weights(model, weights, strict=True)
+        logger.info("loaded %s", weights)
         return model
     logger.warning("MODEL.WEIGHTS is empty: seeded random weights (seed %d)", seed)
     return build_model_from_cfg(cfg, device=device, seed=seed)
@@ -188,10 +183,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         os.environ["PYTHONHASHSEED"] = str(cfg.SEED)
     if cfg.DATASETS.ROOT_DIR:
         datasets.register_builtin(cfg.DATASETS.ROOT_DIR)
-    if args.resume:
-        logger.warning("--resume: checkpoints are not ported; the weights come from "
-                       "MODEL.WEIGHTS or the seed")
-    tester = EvalRunner(cfg, build_eval_model(cfg, device=args.device, seed=args.seed))
+    latest = Checkpointer(cfg.OUTPUT_DIR).latest() if args.resume else None
+    if args.resume and latest is None:
+        logger.info("--resume: no checkpoint in %s", cfg.OUTPUT_DIR)
+    tester = EvalRunner(cfg, build_eval_model(cfg, device=args.device, seed=args.seed,
+                                              weights=latest))
     results = tester.test()
     for k, v in results.items():
         logger.info("%s: %s", k, v)

@@ -23,6 +23,7 @@ from nopesac_tpu.engine.trainer import build_model_from_cfg as jax_build_model
 from nopesac_tpu.utils.torch_import import import_torch_weights
 
 from nopesac_torch.config.config import get_cfg
+from nopesac_torch.engine.checkpoint import load_weights
 from nopesac_torch.engine.predict import build_model_from_cfg
 from nopesac_torch.engine.train import TrainStep, build_train_model, synthetic_batches
 from nopesac_torch.utils.weights import state_dict_from_jax
@@ -79,17 +80,25 @@ def test_importer_inverts_state_dict_from_jax(trees, state_dict, tmp_path):
             np.testing.assert_array_equal(lg[key], v, err_msg=key)
 
 
-def test_port_model_loads_strictly(state_dict):
+def test_port_model_loads_strictly(state_dict, tmp_path):
     cfg = get_cfg()
     cfg.merge_from_file(CONFIG)
     model = build_model_from_cfg(cfg, device="cpu")
     assert sorted(model.state_dict()) == sorted(state_dict)
     model.load_state_dict(state_dict, strict=True)
     # a reference checkpoint also carries BatchNorm2d's num_batches_tracked
+    # and the criterion's empty_weight; the port's loader drops both
     extra = {k.rsplit(".", 1)[0] + ".num_batches_tracked": torch.tensor(7)
              for k in state_dict if k.endswith(".1.running_var")}
     assert extra
-    model.load_state_dict({**state_dict, **extra}, strict=True)
+    extra["criterion.empty_weight"] = torch.tensor([1.0, 0.1])
+    path = tmp_path / "released.pth"
+    torch.save({"model": {**state_dict, **extra}}, path)
+    model = build_model_from_cfg(cfg, device="cpu", seed=3)
+    assert load_weights(model, str(path), strict=True) == {"missing": [], "unexpected": []}
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, state_dict[k]), k
+    os.remove(path)
     w = state_dict["camera_head_list.0.fc_trans.weight"]
     assert tuple(w.shape) == (256, 128 * 2 * 3)
     assert torch.equal(model.camera_head.fc_trans.weight, w)
