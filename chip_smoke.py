@@ -69,7 +69,25 @@ Phases, in order; any failure exits non-zero before the last line:
      and finite, both artifacts written under output/ and readable,
      the B1/B2/B4 counters at one/one/24 per batch; the host postprocess
      timed per pair on the main path's and the planar scene's outputs.
-Phases 11-13 run right after phase 7, while the eval model is on the card.
+ 14. training entry point: `engine/trainer.py:Trainer` on
+     configs/train_mp3d_step3.yaml (f32, seeded weights, 16 pairs of
+     480x640 per step) over 32 synthetic pairs of 12 planes per view, with
+     the spawn pool (DATALOADER.NUM_WORKERS 4), 4 steps, a checkpoint every
+     2, precise-BN over 2 batches and the evaluation hook (8 pairs) at step
+     4: loss rows for iterations 0 and 3 in metrics.json, finite, no skipped
+     step; the eval row with tests/test_end_to_end.py's metrics, finite;
+     model_0000002.pth, model_0000004.pth, model_final.pth and
+     last_checkpoint; B3 launched 3 times per step and B1/B2 once per eval
+     batch; a second Trainer resumed from the last checkpoint equal bit for
+     bit to the first (model, AdamW moments, update count, generator); the
+     weight chain: a train_mp3d_step1 model loads the step-3 file (every
+     shared tensor the file's, the heads unexpected) and a train_mp3d_step2
+     model loads the step-1 file (the new heads reported missing). Prints
+     the loop's ms per step beside phase 9's bare step, the time blocked on
+     the loader per step, checkpoint save ms and size, precise-BN ms and
+     the evaluation hook's ms.
+Phases 11-13 run right after phase 7, while the eval model is on the card;
+phase 14 runs after phase 10.
 Phases 6, 7 and 12 hold the card to the CPU, or the fused path to the
 unfused one, as the CPU is held to JAX in tests/test_torch_slice.py: valid
 planes equal, labels agree on >= 99.9% of pixels, log-scores within 1.5e-3
@@ -79,7 +97,8 @@ Then one JSON line with every kernel's launches, error and times, and, last,
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The launches of B1 and B2 are those of the eval path (phase 5), those of B3
 those of the train path (phase 9), those of B4 those of the fused-tail eval
-path (phase 12). B4's times are per eval batch: the sum over its 24 calls.
+path (phase 12); phase 14 checks its own. B4's times are per eval batch:
+the sum over its 24 calls.
 
 Kernel times are CUDA-event means over many warm launches. `bound_ms` is the
 larger of bytes moved / 3.35 TB/s and f32 operations / 67 TFLOP/s (H100 SXM
@@ -139,6 +158,11 @@ B4_LAUNCHES = 2 * sum(s[-1] for s in B4_STAGES)  # 24 per eval batch
 B4_F32_TOL = 1e-5  # of max |ref|: f32 sums over Cin in another order
 BF16_ULP = 2.0 ** -7
 ENTRY_PAIRS = 16
+TRAINER_PAIRS = 32       # the training split of phase 14
+TRAINER_TEST_PAIRS = 8   # its test split: two eval batches
+TRAINER_STEPS = 4
+TRAINER_HW = (480, 640)
+TRAINER_SPLIT = "chip_smoke_trainer_test"
 
 
 class SmokeFailure(Exception):
@@ -728,7 +752,7 @@ def run_train_path(torch, dev, card):
             "select_maps": 0, "sinkhorn": 0, "bottleneck_tail": 0}
     if counts != want:
         raise SmokeFailure(f"train path launches {counts}, want {want}")
-    return counts
+    return counts, ms
 
 
 def separate_queries(torch, model, seed):
@@ -830,6 +854,160 @@ def check_train_reference(torch, dev):
           f"{gn_rel:.2e}, params after AdamW rel {param_rel:.2e} (max |diff| {param_max:.2e})")
     if bad or not gn_rel <= 1e-3 or not param_rel <= 1e-5:
         raise SmokeFailure(f"train reference: the card disagrees with the CPU: {bad}")
+
+
+def trainer_cfg(path, out_dir, opts=()):
+    """A curriculum config in f32 at 480x640 with 16 pairs per step, seeded
+    weights unless `opts` name MODEL.WEIGHTS, and phase 14's loop settings."""
+    return load_train_cfg(path, [
+        "MODEL.COMPUTE_DTYPE", "float32", "MODEL.BACKBONE_TRAIN_DTYPE", "float32",
+        "SOLVER.IMS_PER_BATCH", str(TRAIN_PAIRS), "INPUT.IMAGE_SIZE", str(TRAINER_HW),
+        "MODEL.WEIGHTS", "", "DATALOADER.NUM_WORKERS", "4",
+        "SOLVER.MAX_ITER", str(TRAINER_STEPS), "SOLVER.CHECKPOINT_PERIOD", "2",
+        "TEST.EVAL_PERIOD", str(TRAINER_STEPS), "TEST.PRECISE_BN.ENABLED", "True",
+        "TEST.PRECISE_BN.NUM_ITER", "2", "DATASETS.TEST", f'("{TRAINER_SPLIT}",)',
+        "OUTPUT_DIR", out_dir, *opts])
+
+
+def check_weight_chain(torch, trainer, path, prev, want_missing, want_unexpected, what):
+    """Every tensor the model shares with the file at `path` (its state_dict
+    `prev`) is the file's, and the overlay reported what was asked."""
+    got = trainer.model.state_dict()
+    shared = [k for k in got if k in prev]
+    report = trainer.weights_report
+    bad = [k for k in shared if not torch.equal(got[k].cpu(), prev[k])]
+    print(f"[trainer] weight chain {what}: {len(shared)} shared tensors, "
+          f"{len(report['missing'])} missing, {len(report['unexpected'])} unexpected")
+    if (bad or not shared or sorted(report["missing"]) != sorted(want_missing)
+            or sorted(report["unexpected"]) != sorted(want_unexpected)):
+        raise SmokeFailure(f"weight chain {what}: {len(bad)} shared tensors differ from "
+                           f"{path}, or the report differs")
+
+
+def run_trainer(torch, dev, card, step_ms):
+    import shutil
+
+    from nopesac_torch.data.registry import DatasetCatalog
+    from nopesac_torch.data.synthetic import make_dataset
+    from nopesac_torch.engine.trainer import Trainer
+    from nopesac_torch.utils.device import LAUNCHES
+
+    out_dir = os.path.join(REPO, "output", "trainer_step3")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    train_pairs, test_pairs = (
+        make_dataset(n, TRAIN_PLANES, seed=seed, h=TRAINER_HW[0], w=TRAINER_HW[1])
+        for n, seed in ((TRAINER_PAIRS, 21), (TRAINER_TEST_PAIRS, 22)))
+    # the masks as the split jsons carry them, COCO RLE only: the generator's
+    # dense copies would triple what each worker is sent
+    for pair in train_pairs:
+        for v in ("0", "1"):
+            for ann in pair[v]["annotations"]:
+                del ann["mask"]
+    if TRAINER_SPLIT not in DatasetCatalog:
+        DatasetCatalog.register(TRAINER_SPLIT, lambda: test_pairs)
+    cfg = trainer_cfg(TRAIN_CONFIG, out_dir)
+    trainer = Trainer(cfg, dataset_list=train_pairs, device=dev)
+    print(f"[trainer] {TRAINER_PAIRS} + {TRAINER_TEST_PAIRS} synthetic pairs and the trainer "
+          f"built in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    trainer.loader  # the spawn pool: each worker is sent the mapper and the split
+    print(f"[trainer] loader with {cfg.DATALOADER.NUM_WORKERS} spawn workers started in "
+          f"{time.perf_counter() - t0:.2f} s")
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    try:
+        trainer.train()
+    finally:
+        trainer.close()
+    secs = time.perf_counter() - t0
+    counts = LAUNCHES.snapshot()
+    if trainer.last_eval_error is not None:
+        raise SmokeFailure(f"trainer: the evaluation hook failed: {trainer.last_eval_error!r}")
+    with open(os.path.join(out_dir, "metrics.json")) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    loss_rows = {r["iteration"]: r for r in rows if "eval" not in r}
+    eval_rows = [r for r in rows if "eval" in r]
+    if sorted(loss_rows) != [0, TRAINER_STEPS - 1]:
+        raise SmokeFailure(f"trainer: metrics.json loss rows for {sorted(loss_rows)}")
+    for it, r in loss_rows.items():
+        losses = {k: v for k, v in r.items() if k.startswith("loss")}
+        bad = sorted(k for k, v in r.items() if not math.isfinite(v))
+        if sorted(losses) != TRAIN_LOSS_KEYS or bad or r["skipped_nonfinite"] != 0:
+            raise SmokeFailure(f"trainer: row {it} has non-finite {bad}, skipped "
+                               f"{r['skipped_nonfinite']}, or other loss keys")
+    keys = ("T median err", "R median err", "T err < 1.0", "R err < 30", "mask_ap@0.5",
+            "plane_ap@iou0.5normal30.0offset0.3", "precision", "recall")
+    if len(eval_rows) != 1:
+        raise SmokeFailure(f"trainer: {len(eval_rows)} eval rows in metrics.json")
+    ev = eval_rows[0]["eval"]
+    if any(k not in ev for k in keys) or not all(math.isfinite(v) for v in ev.values()):
+        raise SmokeFailure(f"trainer: the eval row lacks {[k for k in keys if k not in ev]} "
+                           f"or is not finite")
+    files = ("model_0000002.pth", "model_0000004.pth", "model_final.pth", "last_checkpoint")
+    missing = [n for n in files if not os.path.exists(os.path.join(out_dir, n))]
+    if missing:
+        raise SmokeFailure(f"trainer: {missing} not written")
+    n_eval = TRAINER_TEST_PAIRS // N_PAIRS
+    want = {"mask_loss_fwd": 3 * TRAINER_STEPS, "mask_loss_bwd": 3 * TRAINER_STEPS,
+            "select_maps": n_eval, "sinkhorn": n_eval, "bottleneck_tail": 0}
+    if counts != want:
+        raise SmokeFailure(f"trainer launches {counts}, want {want}")
+    times = trainer.loop_times
+    final = os.path.join(out_dir, "model_final.pth")
+    print(f"[trainer] Trainer.train, {TRAINER_STEPS} steps of {TRAIN_PAIRS} pairs with "
+          f"{cfg.DATALOADER.NUM_WORKERS} loader workers: {secs:.2f} s in all; time_per_iter_recent "
+          f"{loss_rows[TRAINER_STEPS - 1]['time_per_iter_recent'] * 1e3:.2f} ms/step over steps "
+          f"1-3 (a checkpoint save among them) against phase 9's bare step {step_ms:.2f} ms; "
+          f"next(loader) blocked {statistics.mean(times['loader_wait_s']) * 1e3:.2f} ms per step "
+          f"(per step {[round(t * 1e3, 2) for t in times['loader_wait_s']]}); checkpoint save "
+          f"{statistics.mean(times['checkpoint_s']) * 1e3:.2f} ms per file "
+          f"({len(times['checkpoint_s'])} files of {os.path.getsize(final) / 2**20:.1f} MB); "
+          f"precise-BN {statistics.mean(times['precise_bn_s']) * 1e3:.2f} ms per pass (2 batches); "
+          f"evaluation hook {times['eval_s'][0] * 1e3:.2f} ms over {TRAINER_TEST_PAIRS} pairs; "
+          f"launches {counts}; on {card}")
+    print(f"[trainer] eval row: { {k: round(ev[k], 4) for k in keys} }")
+
+    # (e) resume: a second trainer restores the last checkpoint bit for bit
+    resumed = Trainer(cfg, dataset_list=train_pairs, device=dev)
+    resumed.resume_or_load(resume=True)
+    a, b = trainer.train_step, resumed.train_step
+    same = all(torch.equal(v, resumed.model.state_dict()[k])
+               for k, v in trainer.model.state_dict().items())
+    sa, sb = a.optimizer.state_dict()["state"], b.optimizer.state_dict()["state"]
+    same &= sa.keys() == sb.keys() and all(
+        torch.equal(sa[i][m], sb[i][m]) for i in sa for m in ("exp_avg", "exp_avg_sq", "step"))
+    same &= (a.step, a.updates) == (b.step, b.updates) and torch.equal(a.gen.get_state(),
+                                                                      b.gen.get_state())
+    print(f"[trainer] resumed at step {b.step}, {b.updates} updates: model, AdamW moments and "
+          f"generator {'bit-equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise SmokeFailure("trainer: the resumed state differs from the saved one")
+    del trainer, resumed, a, b, sa, sb
+    torch.cuda.empty_cache()
+
+    # (f) the weight chain in both directions
+    step3 = torch.load(final, map_location="cpu", weights_only=False)["model"]
+    step1_cfg = os.path.join(REPO, "configs", "train_mp3d_step1.yaml")
+    step2_cfg = os.path.join(REPO, "configs", "train_mp3d_step2.yaml")
+    one_dir = os.path.join(REPO, "output", "trainer_step1")
+    one = Trainer(trainer_cfg(step1_cfg, one_dir, ["MODEL.WEIGHTS", final]), device=dev)
+    sd1 = {k: v.cpu() for k, v in one.model.state_dict().items()}
+    check_weight_chain(torch, one, final, step3, [], sorted(k for k in step3 if k not in sd1),
+                       "step 3 -> step 1")
+    one_final = one.checkpointer.save(one.model, None, 0, name="model_final")
+    del one
+    two_dir = os.path.join(REPO, "output", "trainer_step2")
+    two = Trainer(trainer_cfg(step2_cfg, two_dir, ["MODEL.WEIGHTS", one_final]), device=dev)
+    new = [k for k in two.model.state_dict() if k not in sd1]
+    check_weight_chain(torch, two, one_final, sd1, new, [], "step 1 -> step 2")
+    if not any(k.startswith("matching_head.") for k in new):
+        raise SmokeFailure("weight chain step 1 -> step 2: no new matching head")
+    del two
+    torch.cuda.empty_cache()
+    # each checkpoint of the model and its AdamW state is ~0.9 GB
+    for d in (out_dir, one_dir, two_dir):
+        shutil.rmtree(d, ignore_errors=True)
 
 
 def b4_inputs(torch, dev, seed, b, cin, cout, h, w, residual, dtype=None):
@@ -1142,9 +1320,10 @@ def main(argv=None):
         del model, fused, batches, outs, planar_out
         torch.cuda.empty_cache()
         kernels += check_mask_loss(torch, dev)
-        counts.update({k: v for k, v in run_train_path(torch, dev, card).items()
-                       if k.startswith("mask_loss")})
+        train_counts, step_ms = run_train_path(torch, dev, card)
+        counts.update({k: v for k, v in train_counts.items() if k.startswith("mask_loss")})
         check_train_reference(torch, dev)
+        run_trainer(torch, dev, card, step_ms)
         kernels.append(b4)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

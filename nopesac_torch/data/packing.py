@@ -1,5 +1,7 @@
-"""Wire format of the training targets: packed on the host (numpy), unpacked
-on the device (torch). Counterpart of the JAX package's `data/packing.py`.
+"""Wire format of the training targets: packed on the host (numpy,
+`data/mapper.py:pack_mask_bits_np`, so that the mapper and the loader's
+worker processes import no torch), unpacked on the device (torch).
+Counterpart of the JAX package's `data/packing.py`.
 
   * gt_masks [NQ, H, W] uint8 0/1 travel bit-packed along W (np.packbits,
     MSB first): 8x fewer bytes;
@@ -16,13 +18,6 @@ import numpy as np
 import torch
 
 from ..utils.device import DeviceLike
-
-
-def pack_mask_bits_np(masks: np.ndarray) -> np.ndarray:
-    """[..., H, W] 0/1 uint8 -> [..., H, W // 8] uint8 (MSB first)."""
-    if masks.shape[-1] % 8:
-        raise ValueError(f"width {masks.shape[-1]} not divisible by 8")
-    return np.packbits(masks, axis=-1)
 
 
 def unpack_mask_bits(packed: torch.Tensor) -> torch.Tensor:

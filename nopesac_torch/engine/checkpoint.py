@@ -128,15 +128,13 @@ class Checkpointer:
             path = os.path.join(self.dir, f.read().strip())
         return path if os.path.exists(path) else None
 
-    def restore(self, model: torch.nn.Module, train_step=None,
-                path: Optional[str] = None) -> Optional[int]:
-        """Load `path` (default: the latest) strictly into `model` and, when
-        given, `train_step`. Returns its iteration, or None with no file."""
-        path = path or self.latest()
+    def restore(self, model: torch.nn.Module, train_step) -> Optional[int]:
+        """Load the latest checkpoint strictly into `model` and `train_step`.
+        Returns its iteration, or None without one."""
+        path = self.latest()
         if path is None:
             return None
         blob = torch.load(path, map_location="cpu", weights_only=False)
         model.load_state_dict(blob["model"], strict=True)
-        if train_step is not None:
-            train_step.load_state_dict({"optimizer": blob["optimizer"], **blob["trainer"]})
+        train_step.load_state_dict({"optimizer": blob["optimizer"], **blob["trainer"]})
         return int(blob["iteration"])

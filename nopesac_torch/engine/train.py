@@ -8,8 +8,9 @@ reference checkpoints are not in the repository), maps seeded synthetic pairs
 (`data/synthetic.py`, `--planes` planes per view) into SOLVER.IMS_PER_BATCH
 batches and runs `--steps` train steps on `cuda` unless `--device cpu` is
 given, printing one JSON line of losses per step. Counterpart of the JAX
-package's `engine/train_step.py:make_train_step`; checkpoints, precise-BN and
-the eval hook are not ported.
+package's `engine/train_step.py:make_train_step`. The training entry point
+with checkpoints, resume, precise-BN and the eval hook is
+`engine/trainer.py`, which runs this `TrainStep`.
 """
 from __future__ import annotations
 
@@ -69,6 +70,19 @@ class TrainStep:
                            for buf in (m.running_mean, m.running_var)]
         self.step = 0     # calls, skipped or not
         self.updates = 0  # applied updates: the schedule's count
+
+    def state_dict(self) -> Dict:
+        """What a resume needs besides the model: the AdamW state, the two
+        counts and the generator's state. The generator runs on across
+        steps (the JAX step folds the step into a fixed key instead), so a
+        resume repeats the uninterrupted run's draws only with it."""
+        return {"optimizer": self.optimizer.state_dict(), "step": self.step,
+                "updates": self.updates, "generator": self.gen.get_state()}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step, self.updates = int(state["step"]), int(state["updates"])
+        self.gen.set_state(state["generator"])
 
     def __call__(self, batch: Dict, aim_rot=None, aim_trans=None) -> Dict[str, torch.Tensor]:
         self.optimizer.zero_grad(set_to_none=True)

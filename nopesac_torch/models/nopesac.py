@@ -124,6 +124,19 @@ class PlaneTRNopeSAC(nn.Module):
         outputs, query_feat = self.sem_seg_head(feats, gen)
         return feats, outputs, query_feat
 
+    def bn_stats_forward(self, images0, images1, gen: Optional[torch.Generator] = None) -> None:
+        """The train-mode forward that reaches every trainable BatchNorm (the
+        plane head's top-down decoder, the camera conv stacks) on both views
+        concatenated, NHWC as in a training batch: detect, then the
+        PixelCameraHead when the camera is on. Each BN layer updates its
+        running statistics from this batch; precise-BN reads them."""
+        if not self.training:
+            raise RuntimeError("bn_stats_forward needs the model in train mode (model.train())")
+        images = torch.cat([images0, images1]).permute(0, 3, 1, 2).contiguous()
+        feats, _, _ = self.detect(images, gen)
+        if self.camera_on:
+            self.camera_head.pixel_camera(feats)
+
     # ------------------------------------------------------------------
     def train_forward(self, batch: Dict, gen: Optional[torch.Generator] = None,
                       aim_rot: Optional[torch.Tensor] = None,

@@ -34,7 +34,10 @@ def test_importing_every_module_loads_no_jax():
             "nopesac_torch.evaluation.evaluator", "nopesac_torch.evaluation.postprocess",
             "nopesac_torch.evaluation.coco_json", "nopesac_torch.utils.rle",
             "nopesac_torch.core.metrics", "nopesac_torch.data.datasets",
-            "nopesac_torch.data.registry"} <= set(mods)
+            "nopesac_torch.data.registry", "nopesac_torch.engine.trainer",
+            "nopesac_torch.engine.checkpoint", "nopesac_torch.engine.precise_bn",
+            "nopesac_torch.data.loader", "nopesac_torch.data.augmentation",
+            "nopesac_torch.utils.tb_writer"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
