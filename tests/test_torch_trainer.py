@@ -68,8 +68,8 @@ BN_TOL = 5e-5                     # PERF.md section 2
 # The top-down decoder's layers fed by the 12-layer transformer's memory
 # (m_conv_dict.m4, then the up-convs after the bilinear upsamples) see
 # activations that already differ by ~1e-4 between the frameworks (the
-# module tolerance); their batch statistics differed by up to 2.5e-4 (my CPU
-# runs). tests/test_torch_train.py holds them to BN_TOL after a train step,
+# module tolerance); their batch statistics differed by up to 2.5e-4 on the
+# CPU. tests/test_torch_train.py holds them to BN_TOL after a train step,
 # which puts (1 - momentum) = 0.1 of a batch statistic into the running one;
 # precise-BN puts in all of it, so the same agreement is BN_TOL / 0.1 here
 DECODER_BN_TOL = BN_TOL / (1 - 0.9)
@@ -204,7 +204,7 @@ LH, LW = 96, 128
 # lr * sign(g), and where a gradient entry sits at the rounding noise its
 # sign differs between the frameworks, a 2 * lr difference (why
 # chip_smoke.py compares parameters by their norm). The two runs' summed
-# updates differ by ~1% of their norm (my CPU runs: 0.65% at 1e-6, 1.2% at
+# updates differ by ~1% of their norm (on the CPU: 0.65% at 1e-6, 1.2% at
 # 1e-5), and later forwards amplify that: at 1e-4 the parameters differed by
 # 4.5e-5 relative after 3 steps, at 1e-5 the step-2 mask loss by 1.5e-3
 # relative and the eval's mean normal error by 0.5%. UPDATE_REL still sees
