@@ -33,10 +33,13 @@ Phases, in order; any failure exits non-zero before the last line:
      step: [32, 50, 120, 160] logits, [32, 50, 480, 640] uint8 masks, 12
      matched queries per view; kernel against its plain version: sums within
      rtol 1e-4, d src within 1e-4 of max |d src|, exact zeros for unmatched
-     queries, and an all-unmatched batch; each kernel's registers, shared
-     memory, spill bytes and resident blocks per SM (cudaFuncGetAttributes);
-  9. train path: the train step of configs/train_mp3d_step3.yaml (f32, 16
-     pairs of 480x640, seeded random weights) on synthetic pairs of 12
+     queries, and an all-unmatched batch; the same with bf16 logits (sums
+     within rtol 1e-4, d src within one bf16 ulp, 2^-7 max |d src|), timed
+     beside the f32 kernels; each kernel's registers, shared memory, spill
+     bytes and resident blocks per SM (cudaFuncGetAttributes);
+  9. train path: the train step of configs/train_mp3d_step3.yaml (f32 and
+     MODEL.REMAT off, 16 pairs of 480x640, seeded random weights) on
+     synthetic pairs of 12
      planes per view from the port's generator, a warm-up step, then 3
      steps: every loss of the JAX train_forward present and finite, no
      skipped step, a finite positive gradient norm in each of the four
@@ -50,11 +53,12 @@ Phases, in order; any failure exits non-zero before the last line:
  11. B4 (bottleneck_tail) at the eight shapes of the fused-tail eval path
      (8 images of 480x640: res2..res5, conv1 Cin -> Cout/4 with ReLU, conv3
      Cout/4 -> Cout with the residual and ReLU), f32, kernel against its
-     plain version within 1e-5 of max |ref|; bf16 at the JAX test's shape
-     (B 2, P 300, 64 -> 256, with and without residual and ReLU) and at
-     res2's conv3, within one bf16 ulp of it (2^-7 |ref| + 1e-6);
-     times beside the unfused sequence the backbone runs without B4 (cuDNN
-     1x1 conv, then the ATen affine, add and ReLU); every eval shape must
+     plain version within 1e-5 of max |ref|; bf16 at the same eight shapes
+     and at the JAX test's (B 2, P 300, 64 -> 256, with and without residual
+     and ReLU), within one bf16 ulp of it (2^-7 |ref| + 1e-6), its bound at
+     bf16 bytes and the dense bf16 tensor-core rate; both timed beside the
+     unfused sequence the backbone runs without B4 in that dtype (cuDNN
+     1x1 conv, then the ATen affine, add and ReLU); every f32 eval shape must
      take the vec variant, whose config (BM, Cin split, blocks) is printed
      per shape with each variant's registers, shared memory and spills;
  12. fused-tail eval path: the phase-5 model and batches with
@@ -85,9 +89,27 @@ Phases, in order; any failure exits non-zero before the last line:
      model loads the step-1 file (the new heads reported missing). Prints
      the loop's ms per step beside phase 9's bare step, the time blocked on
      the loader per step, checkpoint save ms and size, precise-BN ms and
-     the evaluation hook's ms.
-Phases 11-13 run right after phase 7, while the eval model is on the card;
-phase 14 runs after phase 10.
+     the evaluation hook's ms (f32 and REMAT off, as phase 9);
+ 15. bf16 eval path: the eval step of inference_mp3d.yaml with
+     MODEL.COMPUTE_DTYPE bfloat16 on phase 5's weights and batches,
+     unfused and with the fused-tail backbone: output dtypes as the policy
+     says (cameras and the refinement's hypotheses bf16, log-scores, plane
+     parameters and scores f32), B1 and B2 once per batch and B4 24 times
+     per fused batch; the card against the CPU at 96x128 at the bf16 rule of
+     tests/test_torch_bf16_eval.py with the card's own bf16-vs-f32 deviation
+     in place of JAX's; the bf16 eval steps timed against phase 5's and 12's
+     f32 ones in alternating rounds;
+ 16. bf16 train path: configs/train_mp3d_step3.yaml as shipped (bf16 compute
+     and block interiors, REMAT on) on phase 9's batches, a warm-up and 3
+     steps: every loss finite, no skipped step, B3 3 launches per step, B1
+     and B2 none; ms per step and peak memory, then again with REMAT off,
+     beside phase 9's f32 step; then one step of one pair at 96x128 on the
+     card against the CPU (both bf16, the CPU's Hungarian match injected
+     into the card's step) at tests/test_torch_bf16_train.py's loss and
+     gradient rules, with the card's own bf16-vs-f32 deviation in place of
+     JAX's.
+Phases 11-13 and 15 run right after phase 7, while the eval model is on the
+card; phases 14 and 16 run after phase 10.
 Phases 6, 7 and 12 hold the card to the CPU, or the fused path to the
 unfused one, as the CPU is held to JAX in tests/test_torch_slice.py: valid
 planes equal, labels agree on >= 99.9% of pixels, log-scores within 1.5e-3
@@ -97,11 +119,15 @@ Then one JSON line with every kernel's launches, error and times, and, last,
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The launches of B1 and B2 are those of the eval path (phase 5), those of B3
 those of the train path (phase 9), those of B4 those of the fused-tail eval
-path (phase 12); phase 14 checks its own. B4's times are per eval batch:
-the sum over its 24 calls.
+path (phase 12); phases 13-16 check their own. B4's times are per eval
+batch: the sum over its 24 calls. The entries of B3 and B4 carry a "bf16"
+object with the same keys for their bf16 variant (B4's launches those of
+phase 15's fused path; the model sends B3 f32 logits, so its bf16 variant
+has no launches on a main path).
 
 Kernel times are CUDA-event means over many warm launches. `bound_ms` is the
-larger of bytes moved / 3.35 TB/s and f32 operations / 67 TFLOP/s (H100 SXM
+larger of bytes moved / 3.35 TB/s and operations / the peak rate of their
+type: 67 TFLOP/s f32, 989 TFLOP/s dense bf16 on the tensor cores (H100 SXM
 published peaks).
 
     python3 chip_smoke.py --time-tree DIR
@@ -127,6 +153,7 @@ TRAIN_CONFIG = os.path.join(REPO, "configs", "train_mp3d_step3.yaml")
 SMOKE_CONFIG = os.path.join(REPO, "configs", "smoke_synthetic.yaml")
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12
 N_PAIRS = 4        # TEST.IMS_PER_BATCH
 N_BATCHES = 3
 SINKHORN_ITERS = 200
@@ -169,9 +196,9 @@ class SmokeFailure(Exception):
     pass
 
 
-def bound_ms(n_bytes, n_ops):
+def bound_ms(n_bytes, n_ops, op_rate=F32_FLOP_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / F32_FLOP_PER_S
+    t_ops = n_ops / op_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -393,7 +420,11 @@ def check_sinkhorn(torch, dev):
             "kernel_device_ms": prof["device_ms"], "device_events_per_call": prof["per_call"]}
 
 
-def check_outputs(torch, out, b, h, w, nq):
+def check_outputs(torch, out, b, h, w, nq, cam_dtype=None):
+    """Shapes, dtypes and finiteness of the eval outputs; the cameras and the
+    refinement's hypotheses in `cam_dtype` (MODEL.COMPUTE_DTYPE, default
+    f32), the rest as under every policy."""
+    cam_dtype = cam_dtype or torch.float32
     expect = {
         "view0.valid": ((b, nq), torch.bool), "view0.score": ((b, nq), torch.float32),
         "view0.params": ((b, nq, 3), torch.float32), "view0.seg_gated": ((b, h, w), torch.int8),
@@ -402,13 +433,14 @@ def check_outputs(torch, out, b, h, w, nq):
         "assignment": ((b, nq, nq), torch.float32),
         "assignment_beforeRef": ((b, nq, nq), torch.float32),
         "num_matches": ((b,), torch.int32),
-        "camera_onePP.rot": ((b, nq + 1, 4), torch.float32),
+        "camera_onePP.rot": ((b, nq + 1, 4), cam_dtype),
+        "camera_onePP.score_rot": ((b, nq + 1), cam_dtype),
         "camera_onePP.hyp_valid": ((b, nq + 1), torch.bool),
     }
     for cam in ("camera_zero", "camera_init", "camera_initRec", "camera_avgRef0",
                 "camera_softRef0", "camera"):
-        expect[f"cameras.{cam}.tran"] = ((b, 3), torch.float32)
-        expect[f"cameras.{cam}.rot"] = ((b, 4), torch.float32)
+        expect[f"cameras.{cam}.tran"] = ((b, 3), cam_dtype)
+        expect[f"cameras.{cam}.rot"] = ((b, 4), cam_dtype)
     for v in ("view1",):
         for k in ("valid", "score", "params", "seg_gated", "centers"):
             expect[f"{v}.{k}"] = expect[f"view0.{k}"]
@@ -420,9 +452,10 @@ def check_outputs(torch, out, b, h, w, nq):
             raise SmokeFailure(f"{key}: got {tuple(t.shape)} {t.dtype}, want {shape} {dtype}")
         if t.dtype.is_floating_point and not bool(torch.isfinite(t).all()):
             raise SmokeFailure(f"{key} has non-finite values")
+    unit_tol = 1e-4 if cam_dtype == torch.float32 else 2.0 ** -6  # bf16 components
     for cam in ("camera", "camera_softRef0"):
-        norm = out["cameras"][cam]["rot"].norm(dim=-1)
-        if not bool(((norm - 1).abs() < 1e-4).all()):
+        norm = out["cameras"][cam]["rot"].float().norm(dim=-1)
+        if not bool(((norm - 1).abs() < unit_tol).all()):
             raise SmokeFailure(f"{cam} rotation is not a unit quaternion: {norm.tolist()}")
 
 
@@ -658,14 +691,73 @@ def check_mask_loss(torch, dev):
     print(f"[B3 mask_loss] forward kernel {ms_fwd:.4f} ms (bound {fwd_bms:.4f} ms, {fwd_by}), "
           f"plain {plain_fwd_ms:.3f} ms; backward kernel {ms_bwd:.4f} ms (bound {bwd_bms:.4f} "
           f"ms, {bwd_by}), plain {plain_bwd_ms:.3f} ms")
+    bf16 = check_mask_loss_bf16(torch, src, masks, tgt, matched, weights, idx, grad3)
     common = {"route": "cuda", "source": "nopesac_torch/ops/csrc/mask_loss.cu",
               "library_ms": None}
     return [dict(common, name="mask_loss_fwd", replaces="nopesac_tpu/ops/mask_loss_pallas.py:199",
                  max_abs_err=sum_err, ms=ms_fwd, plain_ms=plain_fwd_ms, bound_ms=fwd_bms,
-                 bound_by=fwd_by),
+                 bound_by=fwd_by, bf16=bf16["fwd"]),
             dict(common, name="mask_loss_bwd", replaces="nopesac_tpu/ops/mask_loss_pallas.py:235",
                  max_abs_err=grad_err, ms=ms_bwd, plain_ms=plain_bwd_ms, bound_ms=bwd_bms,
-                 bound_by=bwd_by)]
+                 bound_by=bwd_by, bf16=bf16["bwd"])]
+
+
+def check_mask_loss_bf16(torch, src32, masks, tgt, matched, weights, idx, grad3):
+    """Phase 8 with the logits rounded to bf16: kernel against the plain
+    version on the same bf16 values (f32 sums, a bf16 d src), then timed."""
+    from nopesac_torch.ops import mask_loss
+
+    src = src32.to(torch.bfloat16)
+    b, nq, h, w = src.shape
+
+    def sums_and_grad(fn, m):
+        x = src.clone().requires_grad_(True)
+        sums = fn(x, masks, tgt, m)
+        torch.autograd.backward(torch.stack(sums, dim=-1), weights)
+        return torch.stack(sums, dim=-1).detach(), x.grad
+
+    k_sums, k_grad = sums_and_grad(mask_loss.fused_focal_dice, matched)
+    p_sums, p_grad = sums_and_grad(mask_loss.focal_dice_plain, matched)
+    torch.cuda.synchronize()
+    if k_grad.dtype != torch.bfloat16 or k_sums.dtype != torch.float32:
+        raise SmokeFailure(f"B3 bf16: d src {k_grad.dtype}, sums {k_sums.dtype}")
+    sum_rel = float(((k_sums - p_sums).abs() / p_sums.abs().clamp_min(1e-30))[matched].max())
+    sum_err = float((k_sums - p_sums).abs().max())
+    scale = float(p_grad.float().abs().max())
+    grad_err = float((k_grad.float() - p_grad.float()).abs().max())
+    zeros_ok = bool((k_sums[~matched] == 0).all()) and bool((k_grad[~matched] == 0).all())
+    print(f"[B3 mask_loss] bf16 logits: sums max rel err {sum_rel:.3e}, d src max err "
+          f"{grad_err:.3e} of max |d src| {scale:.3e} (one bf16 ulp: {BF16_ULP * scale:.3e}); "
+          f"unmatched exact zeros: {zeros_ok}")
+    if not (sum_rel <= 1e-4 and grad_err <= BF16_ULP * scale and zeros_ok):
+        raise SmokeFailure("B3 kernel (bf16 logits) disagrees with its plain version")
+    ms_fwd = cuda_ms(torch, lambda: mask_loss.mask_loss_fwd_cuda(src, masks, idx), iters=50)
+    ms_bwd = cuda_ms(torch, lambda: mask_loss.mask_loss_bwd_cuda(src, masks, idx, grad3), iters=50)
+
+    def plain_fwd():
+        return mask_loss.focal_dice_plain(src.detach().requires_grad_(True), masks, tgt, matched)
+
+    def plain_fwd_bwd():
+        torch.autograd.backward(torch.stack(plain_fwd(), dim=-1), weights)
+
+    plain_fwd_ms = cuda_ms(torch, plain_fwd, warm=2, iters=5)
+    plain_bwd_ms = cuda_ms(torch, plain_fwd_bwd, warm=2, iters=5) - plain_fwd_ms
+    n_m, n_px = int(matched.sum()), 16 * h * w
+    read = n_m * (h * w * 2 + n_px) + b * nq * 4  # matched bf16 logits, masks, index
+    fwd_bms, fwd_by = bound_ms(read + b * nq * 4 * 4, n_m * n_px * MASK_FWD_OPS)
+    bwd_bms, bwd_by = bound_ms(read + b * nq * 3 * 4 + b * nq * h * w * 2,
+                               n_m * n_px * MASK_BWD_OPS)
+    print(f"[B3 mask_loss] bf16 logits: forward kernel {ms_fwd:.4f} ms (bound {fwd_bms:.4f} ms, "
+          f"{fwd_by}), plain {plain_fwd_ms:.3f} ms; backward kernel {ms_bwd:.4f} ms (bound "
+          f"{bwd_bms:.4f} ms, {bwd_by}), plain {plain_bwd_ms:.3f} ms")
+    common = {"route": "cuda", "source": "nopesac_torch/ops/csrc/mask_loss.cu",
+              "library_ms": None, "launches": 0, "dtype": "bfloat16"}
+    return {"fwd": dict(common, name="mask_loss_fwd", max_abs_err=sum_err, ms=ms_fwd,
+                        plain_ms=plain_fwd_ms, bound_ms=fwd_bms, bound_by=fwd_by,
+                        replaces="nopesac_tpu/ops/mask_loss_pallas.py:199"),
+            "bwd": dict(common, name="mask_loss_bwd", max_abs_err=grad_err, ms=ms_bwd,
+                        plain_ms=plain_bwd_ms, bound_ms=bwd_bms, bound_by=bwd_by,
+                        replaces="nopesac_tpu/ops/mask_loss_pallas.py:235")}
 
 
 _DET = ("loss_ce", "loss_mask", "loss_dice", "loss_center_ins", "loss_param_l1", "loss_param_cos")
@@ -680,6 +772,10 @@ TRAIN_LOSS_KEYS = sorted(
     + [f"loss_{k}_{b}" for b in ("initCamRef", "initRecCamRef", "initCamRef_Aux",
                                  "initRecCamRef_Aux") for k in _REF])
 TRAIN_MODULES = ("backbone", "sem_seg_head", "matching_head", "camera_head_list")
+# phases 9 and 14 train in f32 without REMAT, the settings of their earlier
+# measurements (the port ignored MODEL.REMAT before it had the bf16 policy)
+F32_TRAIN = ["MODEL.COMPUTE_DTYPE", "float32", "MODEL.BACKBONE_TRAIN_DTYPE", "float32",
+             "MODEL.REMAT", "False"]
 
 
 def load_train_cfg(path, opts):
@@ -701,21 +797,18 @@ def module_grad_norms(torch, model):
     return norms
 
 
-def run_train_path(torch, dev, card):
-    from nopesac_torch.engine.train import TrainStep, build_train_model, synthetic_batches
+def timed_train_steps(torch, cfg, batches, card, what):
+    """A fresh seeded model of `cfg`, a warm-up step on batches[0], then one
+    timed step per further batch: every loss of the JAX train_forward
+    present and finite, no skipped step, a finite positive gradient norm in
+    each module, B3 at 3 launches per step and nothing else. Returns the
+    launch counts, the mean ms per step and the peak allocated bytes of the
+    timed steps."""
+    from nopesac_torch.engine.train import TrainStep, build_train_model
     from nopesac_torch.utils.device import LAUNCHES
 
-    cfg = load_train_cfg(TRAIN_CONFIG, [
-        "MODEL.COMPUTE_DTYPE", "float32", "MODEL.BACKBONE_TRAIN_DTYPE", "float32",
-        "SOLVER.IMS_PER_BATCH", str(TRAIN_PAIRS), "INPUT.IMAGE_SIZE", "(480, 640)"])
-    t0 = time.perf_counter()
-    model = build_train_model(cfg, device=dev, seed=0)
+    model = build_train_model(cfg, device=batches[0]["image0"].device, seed=0)
     step = TrainStep(model, cfg, seed=0)
-    batches = list(synthetic_batches(cfg, TRAIN_STEPS + 1, seed=1, n_planes=TRAIN_PLANES,
-                                     device=dev))
-    torch.cuda.synchronize()
-    print(f"[train] model and {TRAIN_STEPS + 1} batches of {TRAIN_PAIRS} pairs ({TRAIN_PLANES} "
-          f"planes per view) built in {time.perf_counter() - t0:.2f} s")
     step(batches[0])  # warm-up (cuDNN autotuning, allocator)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -733,26 +826,43 @@ def run_train_path(torch, dev, card):
         losses = {n: float(v) for n, v in metrics.items()
                   if n not in ("total_loss", "grad_norm", "skipped_nonfinite")}
         if sorted(losses) != TRAIN_LOSS_KEYS:
-            raise SmokeFailure(f"train step {k}: loss keys differ from the JAX train_forward's: "
-                               f"{sorted(set(losses) ^ set(TRAIN_LOSS_KEYS))}")
+            raise SmokeFailure(f"train step {k} ({what}): loss keys differ from the JAX "
+                               f"train_forward's: {sorted(set(losses) ^ set(TRAIN_LOSS_KEYS))}")
         bad = sorted(n for n, v in losses.items() if not math.isfinite(v))
         if bad or float(metrics["skipped_nonfinite"]) != 0.0:
-            raise SmokeFailure(f"train step {k}: non-finite losses {bad}, skipped "
+            raise SmokeFailure(f"train step {k} ({what}): non-finite losses {bad}, skipped "
                                f"{float(metrics['skipped_nonfinite'])}")
         if not all(math.isfinite(v) and v > 0 for v in norms.values()):
-            raise SmokeFailure(f"train step {k}: gradient norms per module {norms}")
-        print(f"[train] step {k}: total {float(metrics['total_loss']):.4f}, grad norm "
+            raise SmokeFailure(f"train step {k} ({what}): gradient norms per module {norms}")
+        print(f"[train] {what} step {k}: total {float(metrics['total_loss']):.4f}, grad norm "
               f"{float(metrics['grad_norm']):.4f}, per module "
               f"{ {m: round(v, 4) for m, v in norms.items()} }, {times[k] * 1e3:.1f} ms")
     ms = statistics.mean(times) * 1e3
-    print(f"[train] {ms:.2f} ms/step of {TRAIN_PAIRS} pairs at 480x640 f32, "
+    print(f"[train] {what}: {ms:.2f} ms/step of {TRAIN_PAIRS} pairs at 480x640, "
           f"{TRAIN_PAIRS / ms * 1e3:.2f} pairs/s, peak memory {peak / 2**30:.2f} GiB "
           f"(max_memory_allocated) on {card}; launches {counts}")
     want = {"mask_loss_fwd": 3 * TRAIN_STEPS, "mask_loss_bwd": 3 * TRAIN_STEPS,
             "select_maps": 0, "sinkhorn": 0, "bottleneck_tail": 0}
     if counts != want:
-        raise SmokeFailure(f"train path launches {counts}, want {want}")
-    return counts, ms
+        raise SmokeFailure(f"train path ({what}) launches {counts}, want {want}")
+    del model, step
+    torch.cuda.empty_cache()
+    return counts, ms, peak
+
+
+def run_train_path(torch, dev, card):
+    from nopesac_torch.engine.train import synthetic_batches
+
+    cfg = load_train_cfg(TRAIN_CONFIG, F32_TRAIN + [
+        "SOLVER.IMS_PER_BATCH", str(TRAIN_PAIRS), "INPUT.IMAGE_SIZE", "(480, 640)"])
+    t0 = time.perf_counter()
+    batches = list(synthetic_batches(cfg, TRAIN_STEPS + 1, seed=1, n_planes=TRAIN_PLANES,
+                                     device=dev))
+    torch.cuda.synchronize()
+    print(f"[train] {TRAIN_STEPS + 1} batches of {TRAIN_PAIRS} pairs ({TRAIN_PLANES} planes per "
+          f"view) built in {time.perf_counter() - t0:.2f} s")
+    counts, ms, peak = timed_train_steps(torch, cfg, batches, card, "f32, REMAT off")
+    return counts, ms, peak, batches
 
 
 def separate_queries(torch, model, seed):
@@ -856,11 +966,120 @@ def check_train_reference(torch, dev):
         raise SmokeFailure(f"train reference: the card disagrees with the CPU: {bad}")
 
 
+def run_bf16_train_path(torch, dev, card, batches, f32_ms, f32_peak):
+    """Phase 16: train_mp3d_step3.yaml as shipped (bf16 keys, REMAT on) on
+    phase 9's batches, then the same with REMAT off."""
+    size = ["SOLVER.IMS_PER_BATCH", str(TRAIN_PAIRS), "INPUT.IMAGE_SIZE", "(480, 640)"]
+    cfg = load_train_cfg(TRAIN_CONFIG, size)
+    m = cfg.MODEL
+    if (m.COMPUTE_DTYPE, m.BACKBONE_TRAIN_DTYPE, m.FPN_TRAIN_DTYPE, m.REMAT) != (
+            "bfloat16", "bfloat16", "float32", True):
+        raise SmokeFailure("train_mp3d_step3.yaml no longer ships the bf16 policy with REMAT")
+    _, ms, peak = timed_train_steps(torch, cfg, batches, card, "bf16, REMAT on")
+    cfg_off = load_train_cfg(TRAIN_CONFIG, size + ["MODEL.REMAT", "False"])
+    _, ms_off, peak_off = timed_train_steps(torch, cfg_off, batches, card, "bf16, REMAT off")
+    print(f"[train bf16] ms/step: bf16 REMAT on {ms:.2f}, bf16 REMAT off {ms_off:.2f}, f32 REMAT "
+          f"off (phase 9) {f32_ms:.2f}; peak memory GiB: {peak / 2**30:.2f}, "
+          f"{peak_off / 2**30:.2f}, {f32_peak / 2**30:.2f}; {TRAIN_PAIRS} pairs at 480x640 on "
+          f"{card}")
+
+
+def train_grads(torch, model, batch, aim, matches=None, capture=None):
+    """One train_forward and backward: the losses as floats, their dtypes and
+    each module's gradient as one f64 host vector. `matches` replace the
+    Hungarian solve; `capture` (a list) receives the solve's result."""
+    from nopesac_torch.models import nopesac
+
+    solve = nopesac.match_planes_multi
+
+    def patched(*args):
+        if matches is not None:
+            return [m.to(args[1]["gt_valid"].device) for m in matches]
+        out = solve(*args)
+        if capture is not None:
+            capture.extend(o.cpu() for o in out)
+        return out
+
+    nopesac.match_planes_multi = patched
+    try:
+        losses = model.train_forward(batch, None, *aim)
+        torch.stack([v.float() for v in losses.values()]).sum().backward()
+    finally:
+        nopesac.match_planes_multi = solve
+    grads = {}
+    for mod in TRAIN_MODULES:
+        grads[mod] = torch.cat([p.grad.detach().reshape(-1).double().cpu()
+                                for n, p in model.named_parameters()
+                                if n.startswith(mod) and p.grad is not None])
+    return ({k: float(v.detach()) for k, v in losses.items()}, {k: v.dtype for k, v in losses.items()},
+            grads)
+
+
+def check_bf16_train_reference(torch, dev):
+    """Phase 16's reference: one step of one pair at 96x128 of
+    train_mp3d_step3.yaml, bf16 on the CPU (its Hungarian match captured)
+    and on the card in bf16 and f32 with that match injected: the losses by
+    tests/test_torch_bf16_train.py's group rule and each module's gradient
+    by its gradient rule, with the card's own bf16-vs-f32 deviation in place
+    of JAX's."""
+    from nopesac_torch.engine.train import build_train_model, synthetic_batches
+    from nopesac_torch.losses import camera_losses
+    from nopesac_torch.models.nopesac import AIM_RAND_POSES
+
+    base = ["MODEL.SEM_SEG_HEAD.DROPOUT", "0.0", "SOLVER.IMS_PER_BATCH", "1",
+            "INPUT.IMAGE_SIZE", "(96, 128)", "MODEL.WEIGHTS", ""]
+    cfg16 = load_train_cfg(TRAIN_CONFIG, base)
+    cfg32 = load_train_cfg(TRAIN_CONFIG, base + F32_TRAIN[:4])
+    cpu = build_train_model(cfg16, device="cpu", seed=0)
+    separate_queries(torch, cpu, seed=1)
+    batch = next(iter(synthetic_batches(cfg16, 1, seed=5, n_planes=6, device="cpu")))
+    card_batch = {k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict)
+                      else v.to(dev)) for k, v in batch.items()}
+    gen = torch.Generator().manual_seed(3)
+    aim = [camera_losses.rand_aim_rot(gen, AIM_RAND_POSES), camera_losses.rand_aim_trans(
+        gen, AIM_RAND_POSES)]
+    matches = []
+    ref, ref_dt, ref_g = train_grads(torch, cpu, batch, aim, capture=matches)
+    runs = {}
+    for name, cfg in (("bf16", cfg16), ("f32", cfg32)):
+        model = build_train_model(cfg, device=dev)
+        model.load_state_dict(cpu.state_dict())
+        runs[name] = train_grads(torch, model, card_batch, [a.to(dev) for a in aim], matches)
+        del model
+    (got, got_dt, got_g), (own, _, own_g) = runs["bf16"], runs["f32"]
+    if got_dt != ref_dt:
+        raise SmokeFailure("bf16 train reference: the losses' dtypes differ between card and CPU")
+    det = ("loss_ce", "loss_mask", "loss_dice", "loss_center", "loss_param_l1",
+           "loss_param_cos", "loss_q")
+    worst = {}
+    for group in ("detection", "camera and matching"):
+        keys = [k for k in ref if k.startswith(det) == (group == "detection")]
+        rel = {k: (abs(got[k] - ref[k]) / max(abs(own[k]), 1e-30),
+                   abs(got[k] - own[k]) / max(abs(own[k]), 1e-30)) for k in keys}
+        noise = max(r[1] for r in rel.values())
+        floor = {k: BF16_ULP if ref_dt[k] == torch.bfloat16 else 1e-3 for k in keys}
+        bad = {k: r for k, r in rel.items() if not r[0] <= max(1.5 * noise, floor[k])}
+        worst[group] = (max(r[0] for r in rel.values()), noise)
+        if bad:
+            raise SmokeFailure(f"bf16 train reference, {group} losses: card vs CPU {bad} "
+                               f"(the card's own bf16 noise {noise:.3e})")
+    grad = {}
+    for mod in TRAIN_MODULES:
+        rel = float((got_g[mod] - ref_g[mod]).norm() / ref_g[mod].norm())
+        gap = float((got_g[mod] - own_g[mod]).norm() / own_g[mod].norm())
+        grad[mod] = (rel, gap)
+        if not rel <= max(2 * gap, 1e-2):
+            raise SmokeFailure(f"bf16 train reference: {mod} gradient card vs CPU {rel:.3e}, "
+                               f"the card's own bf16-vs-f32 gap {gap:.3e}")
+    print(f"[train bf16 reference 96x128] card vs CPU (bf16, the CPU's match injected): worst "
+          f"relative loss difference and the card's own bf16 noise per group {worst}; per "
+          f"module gradient relative difference and the card's own bf16-vs-f32 gap {grad}")
+
+
 def trainer_cfg(path, out_dir, opts=()):
-    """A curriculum config in f32 at 480x640 with 16 pairs per step, seeded
+    """A curriculum config in f32 without REMAT at 480x640 with 16 pairs per step, seeded
     weights unless `opts` name MODEL.WEIGHTS, and phase 14's loop settings."""
-    return load_train_cfg(path, [
-        "MODEL.COMPUTE_DTYPE", "float32", "MODEL.BACKBONE_TRAIN_DTYPE", "float32",
+    return load_train_cfg(path, F32_TRAIN + [
         "SOLVER.IMS_PER_BATCH", str(TRAIN_PAIRS), "INPUT.IMAGE_SIZE", str(TRAINER_HW),
         "MODEL.WEIGHTS", "", "DATALOADER.NUM_WORKERS", "4",
         "SOLVER.MAX_ITER", str(TRAINER_STEPS), "SOLVER.CHECKPOINT_PERIOD", "2",
@@ -1080,12 +1299,12 @@ def check_bottleneck(torch, dev, card):
                 total[key] += n_blocks * v
             by_count[by] += n_blocks
             del x, wt, res, got, ref
-    # bf16: the JAX test's shape (P 300, not a multiple of the 128-pixel tile)
-    # and res2's conv3; within one bf16 ulp of the plain output
-    bf16_rel = 0.0
+    bf16 = check_bottleneck_bf16(torch, dev, card)
+    # bf16 at the JAX test's shape (P 300, not a multiple of the 128-pixel
+    # tile), with and without residual and ReLU; within one bf16 ulp
+    bf16_rel = bf16["max_diff_over_limit"]
     for bb, cin, co, h, w, residual, relu in ((2, 64, 256, 15, 20, True, True),
-                                              (2, 64, 256, 15, 20, False, False),
-                                              (b, 64, 256, 120, 160, True, True)):
+                                              (2, 64, 256, 15, 20, False, False)):
         x, wt, scale, shift, res = b4_inputs(torch, dev, 100 + cin, bb, cin, co, h, w, residual,
                                              torch.bfloat16)
         got = bottleneck.conv1x1_bn_act_cuda(x, wt, scale, shift, residual=res, relu=relu).float()
@@ -1114,7 +1333,73 @@ def check_bottleneck(torch, dev, card):
             "replaces": "nopesac_tpu/ops/bottleneck_pallas.py:88", "max_abs_err": worst,
             "ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
             "bound_by": by, "library_ms": None, "unfused_ms": total["unfused_ms"],
-            "bf16_max_diff_over_limit": bf16_rel, "per_shape": rows}
+            "bf16_max_diff_over_limit": bf16_rel, "per_shape": rows,
+            "bf16": {k: v for k, v in bf16.items() if k != "max_diff_over_limit"}}
+
+
+def check_bottleneck_bf16(torch, dev, card):
+    """B4 in bf16 at the eight eval shapes: within one bf16 ulp of its plain
+    version (2^-7 |ref| + 1e-6), timed beside the bf16 sequence the unfused
+    backbone runs (cuDNN 1x1 conv, then the ATen affine, add and ReLU), its
+    bound at bf16 bytes and the dense bf16 tensor-core rate."""
+    from nopesac_torch.ops import bottleneck
+
+    F = torch.nn.functional
+    bf = torch.bfloat16
+    b = 2 * N_PAIRS
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "unfused_ms": 0.0}
+    by_count = {"bytes": 0, "operations": 0}
+    worst, worst_ulps, rows = 0.0, 0.0, []
+    for stage, h, w, cout, mid, n_blocks in B4_STAGES:
+        for cin, co, residual in ((cout, mid, False), (mid, cout, True)):
+            x, wt, scale, shift, res = b4_inputs(torch, dev, 200 + len(rows), b, cin, co, h, w,
+                                                 residual, bf)
+            got = bottleneck.conv1x1_bn_act_cuda(x, wt, scale, shift, residual=res)
+            cfg = dict(bottleneck.last_config)
+            ref = bottleneck.conv1x1_bn_act_plain(x, wt, scale, shift, residual=res)
+            torch.cuda.synchronize()
+            diff, lim = (got.float() - ref.float()).abs(), BF16_ULP * ref.float().abs() + 1e-6
+            over, ulps = int((diff > lim).sum()), float((diff / lim).max())
+            worst, worst_ulps = max(worst, float(diff.max())), max(worst_ulps, ulps)
+            if over:
+                raise SmokeFailure(f"B4 kernel (bf16) disagrees with its plain version at {stage} "
+                                   f"{cin}->{co}: {over} outside one bf16 ulp")
+            w16, s16, t16 = wt.to(bf), scale.to(bf)[None, :, None, None], shift.to(bf)[
+                None, :, None, None]
+
+            def unfused():  # the bf16 backbone without B4: ConvNorm, then add and ReLU
+                y = F.conv2d(x, w16) * s16 + t16
+                return F.relu(y + res) if residual else F.relu(y)
+
+            ms = cuda_ms(torch, lambda: bottleneck.conv1x1_bn_act_cuda(
+                x, wt, scale, shift, residual=res), iters=20)
+            plain_ms = cuda_ms(torch, lambda: bottleneck.conv1x1_bn_act_plain(
+                x, wt, scale, shift, residual=res), warm=2, iters=5)
+            unfused_ms = cuda_ms(torch, unfused, iters=20)
+            bms, by = bound_ms(*b4_cost(b, cin, co, h * w, residual, elem=2), BF16_TC_FLOP_PER_S)
+            rows.append({"shape": f"{stage} {cin}->{co}{' +res' if residual else ''}",
+                         "ms": ms, "plain_ms": plain_ms, "unfused_ms": unfused_ms,
+                         "bound_ms": bms, "bound_by": by, "max_ulps": ulps,
+                         "variant": cfg["variant"]})
+            print(f"[B4 bottleneck_tail] bf16 {rows[-1]['shape']} (x{n_blocks} per batch): kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, unfused cuDNN+ATen {unfused_ms:.4f} ms, "
+                  f"bound {bms:.4f} ms ({by}); max |diff| / (2^-7 |ref| + 1e-6) {ulps:.3f}; "
+                  f"variant {cfg['variant']}, {cfg['blocks']} blocks")
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("unfused_ms", unfused_ms),
+                           ("bound_ms", bms)):
+                total[key] += n_blocks * v
+            by_count[by] += n_blocks
+            del x, wt, res, got, ref
+    by = "bytes" if by_count["bytes"] > by_count["operations"] else "operations"
+    print(f"[B4 bottleneck_tail] bf16 per eval batch ({B4_LAUNCHES} calls): kernel "
+          f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, unfused cuDNN+ATen "
+          f"{total['unfused_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms, on {card}")
+    return {"name": "bottleneck_tail", "route": "cuda", "dtype": "bfloat16",
+            "source": "nopesac_torch/ops/csrc/bottleneck.cu",
+            "replaces": "nopesac_tpu/ops/bottleneck_pallas.py:88", "max_abs_err": worst,
+            "ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
+            "bound_by": by, "library_ms": None, "unfused_ms": total["unfused_ms"],
+            "launches": 0, "per_shape": rows, "max_diff_over_limit": worst_ulps}
 
 
 def run_fused_path(torch, dev, model, batches, outs, card):
@@ -1176,6 +1461,115 @@ def run_fused_path(torch, dev, model, batches, outs, card):
           "tail {:.2f} ({:.2f}-{:.2f}), unfused {:.2f} ({:.2f}-{:.2f}), on {}".format(
               *fused_ms, *plain_ms, card))
     return counts, fused
+
+
+def run_bf16_eval_path(torch, dev, model, fused, batches, card):
+    """Phase 15: the eval step with MODEL.COMPUTE_DTYPE bfloat16 on phase 5's
+    weights and batches, unfused and fused; returns the fused path's
+    launch counts."""
+    from nopesac_torch.engine.predict import build_model_from_cfg, make_eval_step
+    from nopesac_torch.utils.device import LAUNCHES
+
+    cfg = load_cfg()
+    cfg.MODEL.COMPUTE_DTYPE = "bfloat16"
+    h, w = cfg.INPUT.IMAGE_SIZE
+    nq = cfg.MODEL.SEM_SEG_HEAD.NUM_OBJECT_QUERIES
+    steps = {}
+    for name, fuse in (("unfused", False), ("fused", True)):
+        m16 = build_model_from_cfg(cfg, device=dev, fuse_tail=fuse)
+        m16.load_state_dict(model.state_dict(), strict=True)
+        step = make_eval_step(m16, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
+        with torch.inference_mode():
+            step(*batches[0])  # warm-up
+            torch.cuda.synchronize()
+            LAUNCHES.reset()
+            t0 = time.perf_counter()
+            outs16 = [step(*pair) for pair in batches[1:]]
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = LAUNCHES.snapshot()
+        want = {"select_maps": N_BATCHES, "sinkhorn": N_BATCHES, "mask_loss_fwd": 0,
+                "mask_loss_bwd": 0, "bottleneck_tail": B4_LAUNCHES * N_BATCHES if fuse else 0}
+        print(f"[bf16 eval] {name}: {secs / N_BATCHES * 1e3:.2f} ms/batch of {N_PAIRS} pairs "
+              f"(wall), launches {counts}")
+        if counts != want:
+            raise SmokeFailure(f"bf16 eval path ({name}) launches {counts}, want {want}")
+        for o in outs16:
+            check_outputs(torch, o, N_PAIRS, h, w, nq, cam_dtype=torch.bfloat16)
+        steps[name] = step
+    f32 = {"unfused": make_eval_step(model, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD),
+           "fused": make_eval_step(fused, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)}
+    order = [("f32", "unfused"), ("bf16", "unfused"), ("f32", "fused"), ("bf16", "fused")]
+    fns = [(lambda s=(f32 if dt == "f32" else steps)[k]: s(*batches[1])) for dt, k in order]
+    with torch.inference_mode():
+        times = alternating_ms(torch, fns)
+    print("[bf16 eval] eval step, median (min-max) ms per batch of {} pairs over 10 alternating "
+          "rounds on {}: ".format(N_PAIRS, card) + ", ".join(
+              "{} {} {:.2f} ({:.2f}-{:.2f})".format(dt, k, *t) for (dt, k), t in zip(order, times)))
+    check_bf16_small_reference(torch, dev)
+    return counts
+
+
+def check_bf16_small_reference(torch, dev):
+    """The bf16 eval step at 96x128 on the card against the CPU, by the rule
+    of tests/test_torch_bf16_eval.py with the card's own bf16-vs-f32
+    deviation in place of JAX's."""
+    from nopesac_torch.engine.predict import build_model_from_cfg, make_eval_step, synthetic_pairs
+
+    images = synthetic_pairs(2, 96, 128, seed=7, device="cpu")
+    outs = {}
+    for d in ("cpu", dev):
+        for dt in ("float32", "bfloat16"):
+            cfg = load_cfg((96, 128))
+            cfg.MODEL.COMPUTE_DTYPE = dt
+            model = build_model_from_cfg(cfg, device=d, seed=0)
+            out = make_eval_step(model, 96, 128, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)(*images)
+            outs[(str(d), dt)] = flat_tree(to_host(out))
+    card = str(dev)
+    c32, c16, p32, p16 = (outs[(card, "float32")], outs[(card, "bfloat16")],
+                          outs[("cpu", "float32")], outs[("cpu", "bfloat16")])
+    for key in ("view0.valid", "view1.valid", "num_matches"):
+        if not torch.equal(c16[key], p16[key]):
+            raise SmokeFailure(f"bf16 reference 96x128: {key} differs between card and CPU")
+    errs, dev_card, dev_cpu = {}, {}, {}
+    for key in [k for k in c16 if k.startswith("cameras.")] + ["log_scores"]:
+        keep = p32[key].abs() < 1e4
+        a16, a32, b16, b32 = (t.float()[keep] for t in (c16[key], c32[key], p16[key], p32[key]))
+        scale = float(b32.abs().max())
+        d_card = float((a16 - a32).abs().max())
+        err = float((a16 - b16).abs().max())
+        if not err <= max(1.5 * d_card, BF16_ULP * scale):
+            raise SmokeFailure(f"bf16 reference 96x128: {key} card vs CPU {err:.3e}, the card's "
+                               f"own bf16 deviation {d_card:.3e}")
+        errs[key] = err
+        if scale > 0:
+            dev_card[key], dev_cpu[key] = d_card / scale, float((b16 - b32).abs().max()) / scale
+    ratio = max(dev_cpu.values()) / max(dev_card.values())
+    labels = {}
+    for view in ("view0", "view1"):
+        k = f"{view}.seg_gated"
+        ours = float((c16[k] != p16[k]).float().mean())
+        own = float((c16[k] != c32[k]).float().mean())
+        labels[view] = (ours, own)
+        if ours > 2 * own + 0.005:
+            raise SmokeFailure(f"bf16 reference 96x128: {view} labels disagree on {ours:.4f} of "
+                               f"pixels, the card's own bf16 disagreement {own:.4f}")
+    if not 0.25 <= ratio <= 4.0:
+        raise SmokeFailure(f"bf16 reference 96x128: the CPU's bf16 deviation is {ratio:.2f} times "
+                           f"the card's")
+    print(f"[bf16 eval reference 96x128] card vs CPU: worst camera/log-score difference "
+          f"{max(errs.values()):.3e}, the CPU's over the card's own bf16 deviation {ratio:.3f}, "
+          f"labels (card vs CPU, card bf16 vs f32) {labels}")
+
+
+def flat_tree(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
 
 
 def run_entry_point(torch, dev, fused, planar_out, card):
@@ -1317,12 +1711,18 @@ def main(argv=None):
         fused_counts, fused = run_fused_path(torch, dev, model, batches, outs, card)
         counts["bottleneck_tail"] = fused_counts["bottleneck_tail"]
         run_entry_point(torch, dev, fused, planar_out, card)
+        bf16_counts = run_bf16_eval_path(torch, dev, model, fused, batches, card)
+        b4["bf16"]["launches"] = bf16_counts["bottleneck_tail"]
         del model, fused, batches, outs, planar_out
         torch.cuda.empty_cache()
         kernels += check_mask_loss(torch, dev)
-        train_counts, step_ms = run_train_path(torch, dev, card)
+        train_counts, step_ms, step_peak, train_batches = run_train_path(torch, dev, card)
         counts.update({k: v for k, v in train_counts.items() if k.startswith("mask_loss")})
         check_train_reference(torch, dev)
+        run_bf16_train_path(torch, dev, card, train_batches, step_ms, step_peak)
+        del train_batches
+        torch.cuda.empty_cache()
+        check_bf16_train_reference(torch, dev)
         run_trainer(torch, dev, card, step_ms)
         kernels.append(b4)
     except SmokeFailure as e:

@@ -78,10 +78,14 @@ def warp_planes_to_global(planes: torch.Tensor, quat: torch.Tensor,
 
     With end = R(p*flip) + t and b = end - t:
     warped = (<end, b> / (|b| + eps)^2) * b.
+    R is computed in the quaternion's dtype; the product runs in the
+    promoted dtype of the planes and R, as jnp.einsum promotes (f32 planes
+    warped by a bf16 pose give f32).
     """
     rot = quat_to_rotmat(quat)  # [..., 3, 3]
+    dt = torch.promote_types(planes.dtype, rot.dtype)
     t = tran.unsqueeze(-2)
-    end = torch.matmul(_flip(planes), rot.transpose(-1, -2)) + t
+    end = torch.matmul(_flip(planes).to(dt), rot.to(dt).transpose(-1, -2)) + t
     b = end - t
     scale = torch.sum(end * b, dim=-1) / torch.square(safe_norm(b, dim=-1) + eps)
     return scale.unsqueeze(-1) * b

@@ -22,7 +22,7 @@ import torch
 
 from ..config.config import CfgNode, get_cfg
 from ..models.nopesac import PlaneTRNopeSAC, TrainSettings
-from ..utils.device import DeviceLike, resolve_device, set_f32_parity
+from ..utils.device import DeviceLike, resolve_device, resolve_dtype, set_f32_parity
 from ..utils.weights import seeded_init
 
 
@@ -32,12 +32,12 @@ def build_model_from_cfg(cfg: CfgNode, device: DeviceLike = None,
     with the config's loss switches and weights for `train_forward`. `seed`
     fills it with seeded random weights; otherwise load a state_dict into it.
     `fuse_tail` runs the backbone's identity-block tails through kernel B4 at
-    inference (no config key: the JAX package has none either). Sets the f32
-    precision policy."""
+    inference (no config key: the JAX package has none either). The compute
+    dtypes come from MODEL.COMPUTE_DTYPE, BACKBONE_TRAIN_DTYPE and
+    FPN_TRAIN_DTYPE, train-mode backbone checkpointing from MODEL.REMAT.
+    Sets the precision policy."""
     dev = resolve_device(device)
     set_f32_parity()
-    if cfg.MODEL.get("COMPUTE_DTYPE", "float32") != "float32":
-        raise NotImplementedError("the port runs f32 inference only (MODEL.COMPUTE_DTYPE)")
     if cfg.MODEL.DEPTH_ON:
         raise NotImplementedError("MODEL.DEPTH_ON is not ported")
     h = cfg.MODEL.SEM_SEG_HEAD
@@ -81,6 +81,11 @@ def build_model_from_cfg(cfg: CfgNode, device: DeviceLike = None,
         transformer_dropout=h.get("DROPOUT", 0.1),
         train_settings=settings,
         fuse_tail=fuse_tail,
+        dtype=resolve_dtype(cfg.MODEL.COMPUTE_DTYPE, "COMPUTE_DTYPE"),
+        backbone_train_dtype=resolve_dtype(cfg.MODEL.BACKBONE_TRAIN_DTYPE,
+                                           "BACKBONE_TRAIN_DTYPE"),
+        fpn_train_dtype=resolve_dtype(cfg.MODEL.FPN_TRAIN_DTYPE, "FPN_TRAIN_DTYPE"),
+        remat=bool(cfg.MODEL.REMAT),
     )
     if seed is not None:
         seeded_init(model, seed)

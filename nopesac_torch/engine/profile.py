@@ -8,7 +8,8 @@
 The eval step: builds the inference model with seeded random weights (with
 `--fuse-tail`, its backbone runs the identity-block tails through kernel B4),
 runs a warm-up batch of TEST.IMS_PER_BATCH synthetic uint8 pairs. The train step
-(`--train`, f32): builds the train model and TrainStep, runs a warm-up step
+(`--train`, f32 and MODEL.REMAT off unless the KEY VALUE overrides say
+otherwise): builds the train model and TrainStep, runs a warm-up step
 on SOLVER.IMS_PER_BATCH synthetic pairs of 12 planes per view. Then two
 timed passes of `--batches` batches each:
   1. without the profiler: the wall time per batch and, per stage, the span
@@ -117,9 +118,9 @@ def main(argv=None) -> int:
     cfg = get_cfg()
     default = "train_mp3d_step3.yaml" if args.train else "inference_mp3d.yaml"
     cfg.merge_from_file(args.config_file or os.path.join(REPO, "configs", default))
-    if args.train:
+    if args.train:  # f32 without REMAT, the settings of the earlier train profiles
         cfg.merge_from_list(["MODEL.COMPUTE_DTYPE", "float32",
-                             "MODEL.BACKBONE_TRAIN_DTYPE", "float32"])
+                             "MODEL.BACKBONE_TRAIN_DTYPE", "float32", "MODEL.REMAT", "False"])
     if args.opts:
         cfg.merge_from_list(args.opts)
     h, w = cfg.INPUT.IMAGE_SIZE

@@ -67,8 +67,12 @@ def _fetch(tree):
 
 
 def _numpy(tree):
+    """Host tensors as numpy arrays; bf16 (which numpy lacks) is widened to
+    f32 exactly, so the artifacts of a bf16 run have an f32 run's dtypes."""
     if isinstance(tree, dict):
         return {k: _numpy(v) for k, v in tree.items()}
+    if tree.dtype == torch.bfloat16:
+        tree = tree.to(torch.float32)
     return tree.numpy()
 
 

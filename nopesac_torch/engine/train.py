@@ -36,9 +36,10 @@ from .predict import build_model_from_cfg
 
 def build_train_model(cfg: CfgNode, device: DeviceLike = None,
                       seed: Optional[int] = None) -> PlaneTRNopeSAC:
-    """The model of a config in train mode on `device` (default `cuda`)."""
-    if cfg.MODEL.get("BACKBONE_TRAIN_DTYPE", "float32") != "float32":
-        raise NotImplementedError("the port trains in f32 only (MODEL.BACKBONE_TRAIN_DTYPE)")
+    """The model of a config in train mode on `device` (default `cuda`). Its
+    parameters and so the AdamW state stay f32 under every dtype policy: the
+    layers cast their weights, and autograd sends f32 gradients back to
+    them."""
     return build_model_from_cfg(cfg, device=device, seed=seed).train()
 
 

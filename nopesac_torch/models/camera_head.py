@@ -4,6 +4,11 @@
 volume, the pose auto-encoders (AIM) and one-plane pose-hypothesis
 refinement with soft/avg fusion, all as fixed-shape masked tensor ops over
 [B, NQ(+1), ...] with a `num_matches` vector.
+
+The whole head computes in one dtype, MODEL.COMPUTE_DTYPE, in eval and in
+train mode, as the JAX package's `PlaneCameraHead(dtype)`: every layer
+casts its input, and the refinement's masks are built in it. Geometry on
+f32 plane parameters warped by its poses promotes to f32, as in JAX.
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ from ..core.geometry import (
     warp_planes_identity,
     warp_planes_to_global,
 )
-from .layers import MLP, conv_bn, conv_gn, upsample_nearest
+from .layers import MLP, Cast, Conv2d, Linear, conv_bn, conv_gn, set_compute_dtype, \
+    upsample_nearest
 
 CONV_STACK_BN_EPS = 1e-3
 CONV_STACK_BN_MOMENTUM = 0.99
@@ -115,7 +121,7 @@ class BasePixelDecoder(nn.Module):
         self.layer_2 = conv_gn(conv_dim, conv_dim, 3)
         self.adapter_1 = conv_gn(512, conv_dim, 1, relu=False)
         self.layer_1 = conv_gn(conv_dim, conv_dim, 3)
-        self.mask_features = nn.Conv2d(conv_dim, mask_dim, 3, padding=1)
+        self.mask_features = Conv2d(conv_dim, mask_dim, 3, padding=1)
 
     def forward(self, features: Dict[str, torch.Tensor]):
         y = self.layer_3(features["res5"])
@@ -148,11 +154,12 @@ def compute_corr_softmax(f1, f2):
     return torch.softmax(corr, dim=1)
 
 
-class PlaneCameraHead(nn.Module):
-    """PixelCameraHead + AIM + PlaneCamRefHead."""
+class PlaneCameraHead(Cast, nn.Module):
+    """PixelCameraHead + AIM + PlaneCamRefHead, in `dtype`."""
 
     def __init__(self, image_size=(480, 640), num_queries: int = 50, cam_rec_on: bool = True,
-                 cam_ref_on: bool = True, warp_plane_in_cam_ref_on: bool = True):
+                 cam_ref_on: bool = True, warp_plane_in_cam_ref_on: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cam_rec_on = cam_rec_on
         self.cam_ref_on = cam_ref_on
@@ -163,10 +170,10 @@ class PlaneCameraHead(nn.Module):
         self.convs_backbone = _conv_stack(256, 256, (1,) * 6, pool_after=(1, 3))
         self.convs_trans = _conv_stack(corr_ch, 128, POSE_CONV_STRIDES)
         self.convs_rots = _conv_stack(corr_ch, 128, POSE_CONV_STRIDES)
-        self.fc_trans = nn.Linear(fc_in, 256)
-        self.fc_rots = nn.Linear(fc_in, 256)
-        self.trans = nn.Linear(256, 3)
-        self.rots = nn.Linear(256, 4)
+        self.fc_trans = Linear(fc_in, 256)
+        self.fc_rots = Linear(fc_in, 256)
+        self.trans = Linear(256, 3)
+        self.rots = Linear(256, 4)
         if cam_rec_on:
             self.rot_emb_proj = MLP(4, 256, 256, 6)
             self.trans_emb_proj = MLP(3, 256, 256, 6)
@@ -179,9 +186,10 @@ class PlaneCameraHead(nn.Module):
             self.decoder_rot2 = MLP(512, 512, 256, 3)
             self.decoder_tran2 = MLP(512, 512, 256, 3)
             self.normal_score_proj = MLP(num_queries, 128, 64, 3)
-            self.rot_score_reg = nn.Linear(64, 1)
+            self.rot_score_reg = Linear(64, 1)
             self.param_score_proj = MLP(num_queries, 128, 64, 3)
-            self.trans_score_reg = nn.Linear(64, 1)
+            self.trans_score_reg = Linear(64, 1)
+        set_compute_dtype(self, dtype)
 
     # -- Pose Regression Network (initial pose) ---------------------------
     def pixel_camera(self, features_cat: Dict[str, torch.Tensor]):
@@ -222,7 +230,7 @@ class PlaneCameraHead(nn.Module):
         and renormalises it.
         """
         b, max_n, _ = geo_local.shape
-        dt = geo_local.dtype
+        dt = self.compute_dtype()
         hyp_valid = torch.cat([torch.ones((b, 1), dtype=torch.bool, device=geo_local.device),
                                seq_valid], dim=1)  # [B, M+1]
         matching_mask = (hyp_valid[:, :, None] & seq_valid[:, None, :]).to(dt)  # [B, M+1, M]

@@ -11,7 +11,9 @@ checkpoint names under `matching_head.`).
     differentiable loop of `core/sinkhorn.py`, on every device, since B2 has
     no backward
 
-Returns the padded [B, N+1, N+1] log-score matrix.
+Returns the padded [B, N+1, N+1] log-score matrix. The head runs in f32
+under every compute-dtype policy: it widens the query features and the
+(bf16 under a bf16 camera head) input camera at its entry.
 """
 from __future__ import annotations
 
@@ -71,6 +73,7 @@ class MatchingHead(nn.Module):
                 params1, params2, row_masks=None, col_masks=None, training: bool = False):
         """plane_app1/2 [B, N, 256]; matcher_input_cam [B, 7] = (tran, quat)
         or None; params1/2 [B, N, 3]; row/col masks [B, N] bool."""
+        plane_app1, plane_app2 = plane_app1.to(torch.float32), plane_app2.to(torch.float32)
         b, n1, _ = plane_app1.shape
         n2 = plane_app2.shape[1]
         if matcher_input_cam is None:
@@ -78,8 +81,9 @@ class MatchingHead(nn.Module):
         else:
             # the geometric prior is a fixed bias, never a gradient path
             with torch.no_grad():
-                normal_dist, offset_dist = geometric_distances(
-                    params1, params2, matcher_input_cam[:, :3], matcher_input_cam[:, 3:])
+                cam = matcher_input_cam.to(torch.float32)
+                normal_dist, offset_dist = geometric_distances(params1, params2, cam[:, :3],
+                                                               cam[:, 3:])
 
         desc1, desc2 = self.gnn(self._proj(self.planeApp_proj, plane_app1),
                                 self._proj(self.planeApp_proj, plane_app2),

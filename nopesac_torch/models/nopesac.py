@@ -7,6 +7,11 @@ shapes and dtypes) as the JAX `PlaneTRNopeSAC.inference`. `train_forward`
 takes a collated training batch (NHWC images, as the JAX package's) and
 returns the same dict of weighted losses as the JAX `train_forward`. Left
 out: the `gt_geo` / `init_cam` ablations and the depth branch.
+
+`dtype` (MODEL.COMPUTE_DTYPE), `backbone_train_dtype` and `fpn_train_dtype`
+place each part in its dtype as the JAX model does (the backbone, the plane
+head's pixel path and the camera head follow them; the transformer, the
+query-side heads and the matching head stay f32); parameters stay f32.
 """
 from __future__ import annotations
 
@@ -85,7 +90,10 @@ class PlaneTRNopeSAC(nn.Module):
                  plane_score_threshold: float = 0.6, mask_prob_threshold: float = 0.5,
                  overlap_threshold: float = 0.6, matching_score_threshold: float = 0.2,
                  inference_out_cam_type: str = "soft", transformer_dropout: float = 0.1,
-                 train_settings: Optional[TrainSettings] = None, fuse_tail: bool = False):
+                 train_settings: Optional[TrainSettings] = None, fuse_tail: bool = False,
+                 dtype: torch.dtype = torch.float32,
+                 backbone_train_dtype: torch.dtype = torch.float32,
+                 fpn_train_dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.train_settings = train_settings or TrainSettings()
         if inference_out_cam_type not in OUT_CAM_TYPES:
@@ -104,14 +112,17 @@ class PlaneTRNopeSAC(nn.Module):
         self.matching_score_threshold = matching_score_threshold
         self.inference_out_cam_type = inference_out_cam_type
 
-        self.backbone = ResNet(fuse_tail=fuse_tail)
-        self.sem_seg_head = PlaneTRHead(num_queries=num_queries, dropout=transformer_dropout)
+        self.backbone = ResNet(fuse_tail=fuse_tail, dtype=dtype, train_dtype=backbone_train_dtype,
+                               remat=remat)
+        self.sem_seg_head = PlaneTRHead(num_queries=num_queries, dropout=transformer_dropout,
+                                        dtype=dtype, fpn_train_dtype=fpn_train_dtype)
         if embedding_on:
             self.matching_head = MatchingHead(offset_multiplier, normal_multiplier,
                                               sinkhorn_iterations)
         if camera_on:
             self.camera_head_list = nn.ModuleList([PlaneCameraHead(
-                image_size, num_queries, cam_rec_on, cam_ref_on, warp_plane_in_cam_ref_on)])
+                image_size, num_queries, cam_rec_on, cam_ref_on, warp_plane_in_cam_ref_on,
+                dtype=dtype)])
 
     @property
     def camera_head(self) -> PlaneCameraHead:
@@ -349,13 +360,13 @@ class PlaneTRNopeSAC(nn.Module):
         """Initial pose, AIM, matching, NOPE-SAC refinement, assignment
         re-gating and the camera dict zoo."""
         b = qf0.shape[0]
-        dt, dev = qf0.dtype, qf0.device
+        head = self.camera_head
+        dt, dev = head.compute_dtype(), qf0.device
         cameras = {"camera_zero": {
             "tran": torch.zeros((b, 3), dtype=dt, device=dev),
             "rot": torch.tensor([[1.0, 0.0, 0.0, 0.0]], dtype=dt, device=dev).repeat(b, 1),
         }}
         result = {}
-        head = self.camera_head
         init = head.pixel_camera(feats_cat)
         init_rot = canonicalize_quat_sign(init["rot"])
         init_tran = init["tran"]

@@ -8,6 +8,14 @@
   * `top_down` FPN pixel decoder (laterals res2..res5 + encoder memory inject)
   * mask logits = einsum(plane_embedding, pixel_embedding)
   * plane/no-plane classifier, plane-param MLP, plane-center MLP + pixel map
+
+Compute dtypes, as the JAX package's `PlaneTRHead(dtype, fpn_train_dtype)`:
+the input projection, the transformer, the query embeddings and every
+query-side head run in f32 under every policy (the input projection casts
+res5 to f32). The pixel path (the top-down decoder, pixel_embedding and
+pixel_plane_center) runs in `dtype` in eval mode and in `fpn_train_dtype`
+in train mode. The mask einsum is f32: pixel_embedding's output is widened
+first.
 """
 from __future__ import annotations
 
@@ -16,7 +24,8 @@ from typing import Dict
 import torch
 import torch.nn as nn
 
-from .layers import MLP, conv_bn, sine_position_embedding, upsample_bilinear
+from .layers import MLP, Conv2d, Linear, conv_bn, set_compute_dtype, sine_position_embedding, \
+    upsample_bilinear
 from .transformer import Decoder, Encoder
 
 
@@ -55,20 +64,24 @@ class PlaneTRHead(nn.Module):
 
     def __init__(self, num_queries: int = 50, hidden_dim: int = 256, nheads: int = 8,
                  enc_layers: int = 6, dec_layers: int = 6, num_classes: int = 1,
-                 mask_dim: int = 256, channel: int = 256, dropout: float = 0.1):
+                 mask_dim: int = 256, channel: int = 256, dropout: float = 0.1,
+                 dtype: torch.dtype = torch.float32,
+                 fpn_train_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.hidden_dim = hidden_dim
-        self.input_proj = nn.Conv2d(2048, hidden_dim, 1)
+        self.input_proj = Conv2d(2048, hidden_dim, 1)
         self.query_embed = nn.Embedding(num_queries, hidden_dim)
         self.context_SA = Encoder(hidden_dim, nheads, enc_layers, dropout=dropout)
         self.context2plane_decoder = Decoder(hidden_dim, nheads, dec_layers, dropout=dropout)
         self.top_down = TopDown(channel=channel, m_dim=hidden_dim)
         self.plane_embedding = MLP(hidden_dim, hidden_dim, mask_dim, 3)
-        self.plane_prob = nn.Linear(hidden_dim, num_classes + 1)
-        self.pixel_embedding = nn.Conv2d(channel, mask_dim, 1)
+        self.plane_prob = Linear(hidden_dim, num_classes + 1)
+        self.pixel_embedding = Conv2d(channel, mask_dim, 1)
         self.plane_param = MLP(hidden_dim, hidden_dim, 3, 3)
         self.plane_center = MLP(hidden_dim, hidden_dim, 2, 3)
-        self.pixel_plane_center = nn.Conv2d(channel, 2, 1)
+        self.pixel_plane_center = Conv2d(channel, 2, 1)
+        for pixel_path in (self.top_down, self.pixel_embedding, self.pixel_plane_center):
+            set_compute_dtype(pixel_path, dtype, fpn_train_dtype)
         self._pos_cache: Dict[tuple, torch.Tensor] = {}
 
     def _pos(self, hc: int, wc: int, device) -> torch.Tensor:
@@ -100,7 +113,8 @@ class PlaneTRHead(nn.Module):
         plane_emb = self.plane_embedding(hs)  # [L, B, Q, C]
         pixel_emb = self.pixel_embedding(p_context)  # [B, C, H, W]
         heads = {"pred_logits": self.plane_prob(hs),
-                 "pred_mask_logits": torch.einsum("lbqc,bchw->lbqhw", plane_emb, pixel_emb),
+                 "pred_mask_logits": torch.einsum("lbqc,bchw->lbqhw", plane_emb,
+                                                  pixel_emb.to(torch.float32)),
                  "pred_params": self.plane_param(hs),
                  "pred_centers": torch.sigmoid(self.plane_center(hs))}
         out = {k: v[-1] for k, v in heads.items()}

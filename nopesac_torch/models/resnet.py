@@ -6,7 +6,17 @@ reference checkpoint's names `stem.conv1`, `res{2..5}.{i}.conv{1,2,3}`,
 
 `fuse_tail=True` runs each identity block's conv1 and conv3 (with their
 FrozenBN, the residual and the ReLU) as kernel B4 (`ops/bottleneck.py`) in
-eval mode; it adds no parameters. Off by default, as in the JAX package."""
+eval mode; it adds no parameters. Off by default, as in the JAX package.
+
+Compute dtypes, as the JAX package's `ResNet(dtype, train_block_dtype)`:
+in eval mode everything runs in `dtype` (MODEL.COMPUTE_DTYPE). In train
+mode the stem and the block interiors (conv1, conv2, conv3 and their BN
+but BN3) run in `train_dtype` (MODEL.BACKBONE_TRAIN_DTYPE), while the
+residual trunk (block inputs and outputs, BN3's affine, the shortcut's BN,
+the add and the ReLU) stays f32. `remat` (MODEL.REMAT) checkpoints each
+block in train mode: only block boundaries are kept for the backward, which
+re-runs each block's forward once. The blocks hold FrozenBN and draw no
+random numbers, so the replay gives the same values."""
 from __future__ import annotations
 
 from typing import Dict
@@ -14,9 +24,10 @@ from typing import Dict
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.bottleneck import conv1x1_bn_act
-from .layers import ConvNorm, FrozenBatchNorm2d
+from .layers import Cast, ConvNorm, FrozenBatchNorm2d, conv2d, set_compute_dtype
 
 STAGE_BLOCKS = (3, 4, 6, 3)  # bottleneck blocks of res2..res5
 
@@ -26,7 +37,8 @@ def _conv_fbn(in_ch, out_ch, k, stride=1, relu=False):
 
 
 class BasicStem(nn.Module):
-    """7x7/2 conv + FrozenBN + relu, then a 3x3/2 max pool."""
+    """7x7/2 conv + FrozenBN + relu, then a 3x3/2 max pool, in the conv's
+    compute dtype."""
 
     def __init__(self, out_channels: int = 64):
         super().__init__()
@@ -36,10 +48,12 @@ class BasicStem(nn.Module):
         return F.max_pool2d(self.conv1(x), kernel_size=3, stride=2, padding=1)
 
 
-class Bottleneck(nn.Module):
+class Bottleneck(Cast, nn.Module):
     """1x1 -> 3x3(stride) -> 1x1 with FrozenBN and an optional projection
-    shortcut. With `fuse_tail`, an identity block in eval mode runs conv1 and
-    conv3 through kernel B4 (conv2 stays a cuDNN conv)."""
+    shortcut. Its compute dtype is the interior's; the trunk's is f32 in
+    train mode and the interior's in eval mode. With `fuse_tail`, an identity
+    block in eval mode runs conv1 and conv3 through kernel B4 (conv2 stays a
+    cuDNN conv)."""
 
     def __init__(self, in_ch: int, bottleneck_ch: int, out_ch: int, stride: int,
                  shortcut: bool, fuse_tail: bool = False):
@@ -55,16 +69,27 @@ class Bottleneck(nn.Module):
             out = conv1x1_bn_act(x, self.conv1.weight, *self.conv1.norm.folded(), relu=True)
             return conv1x1_bn_act(self.conv2(out), self.conv3.weight, *self.conv3.norm.folded(),
                                   residual=x, relu=True)
-        out = self.conv3(self.conv2(self.conv1(x)))
-        sc = self.shortcut(x) if self.shortcut is not None else x
-        return F.relu(out + sc)
+        bdt = self.compute_dtype()
+        odt = torch.float32 if self.training else bdt
+        out = self.conv2(self.conv1(x))
+        # conv3 in the interior's dtype; its BN affine, the shortcut's BN,
+        # the add and the ReLU in the trunk's
+        out = self.conv3.norm.affine(conv2d(out, self.conv3.weight.to(bdt)).to(odt), odt)
+        if self.shortcut is None:
+            return F.relu(out + x.to(odt))
+        sc = conv2d(x.to(bdt), self.shortcut.weight.to(bdt), stride=self.shortcut.stride)
+        return F.relu(out + self.shortcut.norm.affine(sc.to(odt), odt))
 
 
 class ResNet(nn.Module):
-    """ResNet-50; returns the {res2, res3, res4, res5} NCHW feature maps."""
+    """ResNet-50; returns the {res2, res3, res4, res5} NCHW feature maps, in
+    `dtype` in eval mode and f32 in train mode."""
 
-    def __init__(self, fuse_tail: bool = False):
+    def __init__(self, fuse_tail: bool = False, dtype: torch.dtype = torch.float32,
+                 train_dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
+        self.dtype = dtype
+        self.remat = remat
         self.stem = BasicStem(64)
         in_ch, out_ch, bott = 64, 256, 64
         self.stage_names = []
@@ -80,11 +105,14 @@ class ResNet(nn.Module):
             self.stage_names.append(name)
             out_ch *= 2
             bott *= 2
+        set_compute_dtype(self, dtype, train_dtype)
 
     def forward(self, x) -> Dict[str, torch.Tensor]:
-        x = self.stem(x)
+        x = self.stem(x).to(torch.float32 if self.training else self.dtype)
+        remat = self.remat and self.training and torch.is_grad_enabled()
         feats = {}
         for name in self.stage_names:
-            x = getattr(self, name)(x)
+            for block in getattr(self, name):
+                x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
             feats[name] = x
         return feats

@@ -8,6 +8,9 @@ Dropout sits where the JAX package puts it (attention weights, both
 residual branches, the FFN's hidden layer) and draws its masks from the
 `gen` a training forward passes down; with `gen=None` it is the identity.
 LayerNorm eps is 1e-6 (the Flax default).
+
+Every block runs in f32 under every compute-dtype policy, as in the JAX
+package; `Encoder`, `Decoder` and `LocalFeatureGNN` refuse other inputs.
 """
 from __future__ import annotations
 
@@ -19,6 +22,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .layers import FLAX_NORM_EPS, dropout
+
+
+def _f32(what: str, *tensors: torch.Tensor) -> None:
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"the {what} runs in f32 under every policy; got "
+                        f"{[t.dtype for t in tensors]}")
 
 
 class MultiheadAttention(nn.Module):
@@ -80,6 +89,7 @@ class Encoder(nn.Module):
         self.norm = nn.LayerNorm(d_model, eps=FLAX_NORM_EPS)
 
     def forward(self, src, pos, gen=None):
+        _f32("encoder", src, pos)
         for layer in self.layers:
             src = layer(src, pos, gen)
         return self.norm(src)
@@ -125,6 +135,7 @@ class Decoder(nn.Module):
         self.norm = nn.LayerNorm(d_model, eps=FLAX_NORM_EPS)
 
     def forward(self, tgt, memory, pos, query_pos, gen=None):
+        _f32("decoder", tgt, memory, pos, query_pos)
         inters = []
         for layer in self.layers:
             tgt = layer(tgt, memory, pos, query_pos, gen)
@@ -180,6 +191,7 @@ class LocalFeatureGNN(nn.Module):
 
     def forward(self, feat0, feat1, mask0: Optional[torch.Tensor] = None,
                 mask1: Optional[torch.Tensor] = None):
+        _f32("GNN", feat0, feat1)
         b, l0, _ = feat0.shape
         if mask0 is None:
             mask0 = torch.ones((b, l0), dtype=torch.bool, device=feat0.device)

@@ -67,6 +67,11 @@
 //     pairs' dsrc with zeros (float4 stores).
 // Numerics: f32 throughout, IEEE expf/log1pf, and the reciprocal as
 // __frcp_rn, which is the correctly rounded 1/x that the IEEE division gives.
+// The logits may be f32 or bf16 (a template parameter T, as the TPU kernel
+// takes either): bf16 logits are widened to f32 as they are read, and a bf16
+// dsrc is the f32 value rounded once to nearest-even as it is written. The
+// f32 instantiation is the code that f32 logits always took.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -97,6 +102,11 @@ __device__ __forceinline__ Terms elem_terms(float z, float t) {
   return o;
 }
 
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
@@ -105,12 +115,13 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // The horizontal 4x interpolation of src row `row` into out[c] (output
 // columns 4c .. 4c + 3, taps clamped), c = lane, lane + 32, ...
-__device__ __forceinline__ void hrow(const float* __restrict__ row, int w, int lane,
+template <typename T>
+__device__ __forceinline__ void hrow(const T* __restrict__ row, int w, int lane,
                                      float4* __restrict__ out) {
   for (int c = lane; c < w; c += 32) {
-    const float v = __ldg(row + c);
-    const float l = __ldg(row + max(c - 1, 0));
-    const float r = __ldg(row + min(c + 1, w - 1));
+    const float v = ld(row + c);
+    const float l = ld(row + max(c - 1, 0));
+    const float r = ld(row + min(c + 1, w - 1));
     out[c] = make_float4(0.375f * l + 0.625f * v, 0.125f * l + 0.875f * v,
                          0.875f * v + 0.125f * r, 0.625f * v + 0.375f * r);
   }
@@ -158,8 +169,9 @@ compact_kernel(const int* __restrict__ idx, int n, int* __restrict__ work) {
 __host__ __device__ constexpr int fwd_warp_floats(int w) { return 8 * w; }
 __host__ __device__ constexpr int bwd_warp_floats(int w) { return 8 * w + 4 * w + 8; }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-fwd_kernel(const float* __restrict__ src,      // [P, h, w]
+fwd_kernel(const T* __restrict__ src,          // [P, h, w]
            const uint8_t* __restrict__ masks,  // [G, gh, gw]
            const int* __restrict__ idx,        // [P]
            const int* __restrict__ work,       // compact_kernel's output
@@ -172,7 +184,7 @@ fwd_kernel(const float* __restrict__ src,      // [P, h, w]
   const int n_units = work[2 * n_pairs] * tiles;
   for (int unit = blockIdx.x * kWarps + warp; unit < n_units; unit += gridDim.x * kWarps) {
     const int p = work[unit / tiles], tile = unit % tiles;
-    const float* s = src + static_cast<size_t>(p) * h * w;
+    const T* s = src + static_cast<size_t>(p) * h * w;
     const uint8_t* m = masks + static_cast<size_t>(idx[p]) * gh * gw;
     const int g0 = tile * kFwdGaps, g1 = min(g0 + kFwdGaps, h + 1);
     int prev = 0;
@@ -231,14 +243,14 @@ __global__ void fwd_finish_kernel(const float* __restrict__ partials,  // [P, ti
   out[e] = acc;
 }
 
-template <int NC>
+template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads)
-bwd_kernel(const float* __restrict__ src,      // [P, h, w]
+bwd_kernel(const T* __restrict__ src,          // [P, h, w]
            const uint8_t* __restrict__ masks,  // [G, gh, gw]
            const int* __restrict__ idx,        // [P]
            const int* __restrict__ work,       // compact_kernel's output
            const float* __restrict__ grad,     // [P, 3]: d/d(focal, inter, psum)
-           float* __restrict__ dsrc,           // [P, h, w]
+           T* __restrict__ dsrc,               // [P, h, w]
            int n_pairs, int h, int w) {
   extern __shared__ float4 smem4[];
   const int gh = 4 * h, gw = 4 * w;
@@ -252,9 +264,9 @@ bwd_kernel(const float* __restrict__ src,      // [P, h, w]
   const int n_units = work[2 * n_pairs] * tiles;
   for (int unit = blockIdx.x * kWarps + warp; unit < n_units; unit += gridDim.x * kWarps) {
     const int p = work[unit / tiles], tile = unit % tiles;
-    const float* s = src + static_cast<size_t>(p) * h * w;
+    const T* s = src + static_cast<size_t>(p) * h * w;
     const uint8_t* m = masks + static_cast<size_t>(idx[p]) * gh * gw;
-    float* ds = dsrc + static_cast<size_t>(p) * h * w;
+    T* ds = dsrc + static_cast<size_t>(p) * h * w;
     const float gf = grad[3 * p], gi = grad[3 * p + 1], gp = grad[3 * p + 2];
     const int k0 = tile * kBwdRows, k1 = min(k0 + kBwdRows, h);
     int prev = 0;
@@ -318,11 +330,11 @@ bwd_kernel(const float* __restrict__ src,      // [P, h, w]
         __syncwarp();  // the dz row is rewritten by the next output row
       }
       if (g - 1 >= k0) {
-        float* row = ds + static_cast<size_t>(g - 1) * w;
+        T* row = ds + static_cast<size_t>(g - 1) * w;
 #pragma unroll
         for (int j = 0; j < NC; ++j) {
           const int c = lane + 32 * j;
-          if (c < w) row[c] = acc_lo[j];
+          if (c < w) st(row + c, acc_lo[j]);
         }
       }
 #pragma unroll
@@ -337,13 +349,14 @@ bwd_kernel(const float* __restrict__ src,      // [P, h, w]
   // zeros for the unmatched pairs
   const int n_unmatched = work[2 * n_pairs + 1];
   const int hw = h * w;
+  constexpr int kPer16 = 16 / sizeof(T);  // elements per 16-byte store
   for (int q = blockIdx.x; q < n_unmatched; q += gridDim.x) {
-    float* ds = dsrc + static_cast<size_t>(work[n_pairs + q]) * hw;
-    if ((hw & 3) == 0) {
-      float4* d4 = reinterpret_cast<float4*>(ds);
-      for (int e = threadIdx.x; e < hw / 4; e += blockDim.x) d4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+    T* ds = dsrc + static_cast<size_t>(work[n_pairs + q]) * hw;
+    if (hw % kPer16 == 0) {
+      uint4* d16 = reinterpret_cast<uint4*>(ds);
+      for (int e = threadIdx.x; e < hw / kPer16; e += blockDim.x) d16[e] = make_uint4(0u, 0u, 0u, 0u);
     } else {
-      for (int e = threadIdx.x; e < hw; e += blockDim.x) ds[e] = 0.f;
+      for (int e = threadIdx.x; e < hw; e += blockDim.x) st(ds + e, 0.f);
     }
   }
 }
@@ -365,18 +378,20 @@ int persistent_blocks(K kern, int smem, int* blocks) {
 
 int fwd_tiles(int h) { return (h + 1 + kFwdGaps - 1) / kFwdGaps; }
 
-int run_fwd(const float* src, const uint8_t* masks, const int* idx, int* work, float* partials,
+template <typename T>
+int run_fwd(const void* src, const uint8_t* masks, const int* idx, int* work, float* partials,
             float* out, int n_pairs, int h, int w, cudaStream_t st) {
   const int smem = kWarps * fwd_warp_floats(w) * 4;
   int blocks;
-  int e = persistent_blocks(fwd_kernel, smem, &blocks);
+  int e = persistent_blocks(fwd_kernel<T>, smem, &blocks);
   if (e) return e;
   const int tiles = fwd_tiles(h);
   const int grid = std::min(blocks, (n_pairs * tiles + kWarps - 1) / kWarps);
   compact_kernel<<<1, kScanThreads, 0, st>>>(idx, n_pairs, work);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  fwd_kernel<<<grid, kThreads, smem, st>>>(src, masks, idx, work, partials, n_pairs, h, w, tiles);
+  fwd_kernel<T><<<grid, kThreads, smem, st>>>(static_cast<const T*>(src), masks, idx, work,
+                                              partials, n_pairs, h, w, tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n = n_pairs * 4;
@@ -384,19 +399,20 @@ int run_fwd(const float* src, const uint8_t* masks, const int* idx, int* work, f
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NC>
-int run_bwd(const float* src, const uint8_t* masks, const int* idx, int* work, const float* grad,
-            float* dsrc, int n_pairs, int h, int w, cudaStream_t st) {
+template <typename T, int NC>
+int run_bwd(const void* src, const uint8_t* masks, const int* idx, int* work, const float* grad,
+            void* dsrc, int n_pairs, int h, int w, cudaStream_t st) {
   const int smem = kWarps * bwd_warp_floats(w) * 4;
   int blocks;
-  int e = persistent_blocks(bwd_kernel<NC>, smem, &blocks);
+  int e = persistent_blocks(bwd_kernel<T, NC>, smem, &blocks);
   if (e) return e;
   const int tiles = (h + kBwdRows - 1) / kBwdRows;
   const int grid = std::min(blocks, std::max((n_pairs * tiles + kWarps - 1) / kWarps, n_pairs));
   compact_kernel<<<1, kScanThreads, 0, st>>>(idx, n_pairs, work);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_kernel<NC><<<grid, kThreads, smem, st>>>(src, masks, idx, work, grad, dsrc, n_pairs, h, w);
+  bwd_kernel<T, NC><<<grid, kThreads, smem, st>>>(static_cast<const T*>(src), masks, idx, work,
+                                                  grad, static_cast<T*>(dsrc), n_pairs, h, w);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -404,32 +420,33 @@ int cols_per_lane(int w) { return w <= 32 * kMaxNC ? (w + 31) / 32 : 0; }
 
 }  // namespace
 
-// src f32 [P, h, w]; masks u8 [G, 4h, 4w] (4-byte aligned); idx i32 [P] (mask
-// index or -1); work i32 [2P + 2] scratch; partials f32 [P, tiles, 4] scratch
-// with tiles = nopesac_mask_loss_tiles(h); out f32 [P, 4]. w <= 256.
+// src [P, h, w], f32 (bf16 = 0) or bf16 (bf16 = 1); masks u8 [G, 4h, 4w]
+// (4-byte aligned); idx i32 [P] (mask index or -1); work i32 [2P + 2]
+// scratch; partials f32 [P, tiles, 4] scratch with tiles =
+// nopesac_mask_loss_tiles(h); out f32 [P, 4]. w <= 256.
 // Returns cudaGetLastError() after the launches.
 extern "C" int nopesac_mask_loss_fwd(const void* src, const void* masks, const void* idx,
                                      void* work, void* partials, void* out, int n_pairs, int h,
-                                     int w, void* stream) {
+                                     int w, int bf16, void* stream) {
   if (cols_per_lane(w) == 0) return static_cast<int>(cudaErrorInvalidValue);
-  return run_fwd(static_cast<const float*>(src), static_cast<const uint8_t*>(masks),
-                 static_cast<const int*>(idx), static_cast<int*>(work),
-                 static_cast<float*>(partials), static_cast<float*>(out), n_pairs, h, w,
-                 static_cast<cudaStream_t>(stream));
+  auto run = bf16 ? run_fwd<__nv_bfloat16> : run_fwd<float>;
+  return run(src, static_cast<const uint8_t*>(masks), static_cast<const int*>(idx),
+             static_cast<int*>(work), static_cast<float*>(partials), static_cast<float*>(out),
+             n_pairs, h, w, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int nopesac_mask_loss_tiles(int h) { return fwd_tiles(h); }
 
-// grad f32 [P, 3]; work i32 [2P + 2] scratch; dsrc f32 [P, h, w] (every
-// element written: zeros for the unmatched pairs). w <= 256.
+// grad f32 [P, 3]; work i32 [2P + 2] scratch; dsrc [P, h, w] in src's dtype
+// (every element written: zeros for the unmatched pairs). w <= 256.
 extern "C" int nopesac_mask_loss_bwd(const void* src, const void* masks, const void* idx,
                                      void* work, const void* grad, void* dsrc, int n_pairs,
-                                     int h, int w, void* stream) {
-#define NOPESAC_BWD(NC)                                                                         \
-  return run_bwd<NC>(static_cast<const float*>(src), static_cast<const uint8_t*>(masks),      \
-                     static_cast<const int*>(idx), static_cast<int*>(work),                   \
-                     static_cast<const float*>(grad), static_cast<float*>(dsrc), n_pairs, h,  \
-                     w, static_cast<cudaStream_t>(stream))
+                                     int h, int w, int bf16, void* stream) {
+#define NOPESAC_BWD(NC)                                                                        \
+  return (bf16 ? run_bwd<__nv_bfloat16, NC> : run_bwd<float, NC>)(                            \
+      src, static_cast<const uint8_t*>(masks), static_cast<const int*>(idx),                  \
+      static_cast<int*>(work), static_cast<const float*>(grad), dsrc, n_pairs, h, w,          \
+      static_cast<cudaStream_t>(stream))
   switch (cols_per_lane(w)) {
     case 1: NOPESAC_BWD(1);
     case 2: NOPESAC_BWD(2);
@@ -446,7 +463,7 @@ extern "C" int nopesac_mask_loss_bwd(const void* src, const void* masks, const v
 
 // Registers, static shared bytes, dynamic shared bytes, local (spill) bytes
 // and resident blocks per SM of the forward (which 0) or backward (1) kernel
-// at width w, into out[0..4]. Returns a cudaError_t.
+// of f32 logits at width w, into out[0..4]. Returns a cudaError_t.
 namespace {
 template <typename K>
 int attrs(K kern, int smem, int* out) {
@@ -466,17 +483,17 @@ int attrs(K kern, int smem, int* out) {
 }  // namespace
 
 extern "C" int nopesac_mask_loss_attrs(int which, int w, int* out) {
-  if (which == 0) return attrs(fwd_kernel, kWarps * fwd_warp_floats(w) * 4, out);
+  if (which == 0) return attrs(fwd_kernel<float>, kWarps * fwd_warp_floats(w) * 4, out);
   const int smem = kWarps * bwd_warp_floats(w) * 4;
   switch (cols_per_lane(w)) {
-    case 1: return attrs(bwd_kernel<1>, smem, out);
-    case 2: return attrs(bwd_kernel<2>, smem, out);
-    case 3: return attrs(bwd_kernel<3>, smem, out);
-    case 4: return attrs(bwd_kernel<4>, smem, out);
-    case 5: return attrs(bwd_kernel<5>, smem, out);
-    case 6: return attrs(bwd_kernel<6>, smem, out);
-    case 7: return attrs(bwd_kernel<7>, smem, out);
-    case 8: return attrs(bwd_kernel<8>, smem, out);
+    case 1: return attrs(bwd_kernel<float, 1>, smem, out);
+    case 2: return attrs(bwd_kernel<float, 2>, smem, out);
+    case 3: return attrs(bwd_kernel<float, 3>, smem, out);
+    case 4: return attrs(bwd_kernel<float, 4>, smem, out);
+    case 5: return attrs(bwd_kernel<float, 5>, smem, out);
+    case 6: return attrs(bwd_kernel<float, 6>, smem, out);
+    case 7: return attrs(bwd_kernel<float, 7>, smem, out);
+    case 8: return attrs(bwd_kernel<float, 8>, smem, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

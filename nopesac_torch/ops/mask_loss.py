@@ -11,6 +11,12 @@ edges) and t the matched uint8 GT mask. Unmatched queries give exact zeros.
 On a CUDA tensor the sums come from `csrc/mask_loss.cu` through
 `MaskLossFunction`, whose backward is the kernel's backward; on a CPU tensor
 they come from `focal_dice_plain`, differentiated by autograd.
+
+The logits may be f32 or bf16, as the TPU kernel takes either: bf16 logits
+are widened to f32 for the upsample and the focal/dice chain, the sums are
+f32, and d src comes back in bf16, the f32 gradient rounded once. (The
+model's mask logits are f32 under every compute-dtype policy; the bf16
+input belongs to the function's contract.)
 """
 from __future__ import annotations
 
@@ -83,11 +89,16 @@ def upsample4_adjoint(g: torch.Tensor) -> torch.Tensor:
 
 def elem_terms(z: torch.Tensor, t: torch.Tensor):
     """(prob, ce, p_t, alpha_t) with one shared exp for the sigmoid and the
-    stable BCE, as `_elem_terms` of the TPU kernel."""
-    e = torch.exp(-torch.abs(z))
+    stable BCE, as `_elem_terms` of the TPU kernel. |z| and max(z, 0) are
+    written as selects on z >= 0, so that autograd differentiates the z >= 0
+    branch at z = 0 and gets the true derivatives there (sigmoid'(0) = 1/4,
+    BCE'(0) = 1/2 - t) as the kernel's backward does; abs' (0) = 0 would
+    give 0 and 1 - t. Bf16 logits put many z exactly on 0."""
+    pos = z >= 0
+    e = torch.exp(-torch.where(pos, z, -z))
     r = 1.0 / (1.0 + e)
-    prob = torch.where(z >= 0, r, e * r)
-    ce = torch.clamp_min(z, 0.0) - z * t + torch.log1p(e)
+    prob = torch.where(pos, r, e * r)
+    ce = torch.where(pos, z, torch.zeros_like(z)) - z * t + torch.log1p(e)
     p_t = prob * t + (1.0 - prob) * (1.0 - t)
     alpha_t = 0.25 * t + 0.75 * (1.0 - t)
     return prob, ce, p_t, alpha_t
@@ -121,8 +132,8 @@ def _check(src: torch.Tensor, gt_masks: torch.Tensor, tgt_idx: torch.Tensor,
     if w > MAX_WIDTH and src.device.type == "cuda":
         raise ValueError(f"the mask loss kernel holds up to {MAX_WIDTH} logit columns per "
                          f"warp, got w = {w}")
-    if src.dtype != torch.float32:
-        raise TypeError(f"mask loss takes f32 logits, got {src.dtype}")
+    if src.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"mask loss takes f32 or bf16 logits, got {src.dtype}")
     if gt_masks.dtype != torch.uint8:
         raise TypeError(f"mask loss takes uint8 GT masks, got {gt_masks.dtype}")
     if matched is not None and matched.dtype != torch.bool:
@@ -133,19 +144,20 @@ def focal_dice_plain(src: torch.Tensor, gt_masks: torch.Tensor, tgt_idx: torch.T
                      matched: Optional[torch.Tensor] = None):
     """Plain PyTorch version of the kernel: gathers the matched queries and
     their GT masks, upsamples, and sums the elementwise chain; autograd
-    differentiates it. Returns (focal_sum, inter, prob_sum, tgt_sum), each
-    [B, NQ] f32, zero for unmatched queries."""
+    differentiates it (through the widening of bf16 logits, whose gradient
+    it rounds back to bf16). Returns (focal_sum, inter, prob_sum, tgt_sum),
+    each [B, NQ] f32, zero for unmatched queries."""
     _check(src, gt_masks, tgt_idx, matched)
     b, nq, h, w = src.shape
     idx = _flat_index(gt_masks, tgt_idx, matched).to(torch.int64)
     sel = torch.nonzero(idx >= 0).reshape(-1)
-    z = upsample4(src.reshape(b * nq, h, w)[sel])
+    z = upsample4(src.reshape(b * nq, h, w)[sel].to(torch.float32))
     t = gt_masks.reshape(-1, RATIO * h, RATIO * w)[idx[sel]].to(torch.float32)
     prob, ce, p_t, alpha_t = elem_terms(z, t)
     sums = torch.stack([(alpha_t * ce * (1.0 - p_t) ** 2).sum(dim=(1, 2)),
                         (prob * t).sum(dim=(1, 2)), prob.sum(dim=(1, 2)), t.sum(dim=(1, 2))],
                        dim=1)  # [n_sel, 4]
-    out = src.new_zeros((b * nq, 4)).index_put((sel,), sums)
+    out = sums.new_zeros((b * nq, 4)).index_put((sel,), sums)
     return tuple(out[:, k].reshape(b, nq) for k in range(4))
 
 
@@ -177,7 +189,7 @@ def kernel_attributes(which: str, w: int) -> dict:
 
 def mask_loss_fwd_cuda(src: torch.Tensor, gt_masks: torch.Tensor,
                        idx: torch.Tensor) -> torch.Tensor:
-    """Launch the forward kernel: src f32 [B, NQ, h, w], gt_masks u8
+    """Launch the forward kernel: src f32 or bf16 [B, NQ, h, w], gt_masks u8
     [B, NG, 4h, 4w], idx i32 [B*NQ] from `_flat_index` -> [B*NQ, 4] f32."""
     b, nq, h, w = src.shape
     dev = src.device
@@ -194,9 +206,10 @@ def mask_loss_fwd_cuda(src: torch.Tensor, gt_masks: torch.Tensor,
     out = torch.empty((b * nq, 4), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch("nopesac_mask_loss_fwd", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+        _launch("nopesac_mask_loss_fwd", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                 + [ctypes.c_void_p], src.data_ptr(), masks.data_ptr(), idx.data_ptr(),
-                work.data_ptr(), partials.data_ptr(), out.data_ptr(), b * nq, h, w, stream)
+                work.data_ptr(), partials.data_ptr(), out.data_ptr(), b * nq, h, w,
+                int(src.dtype == torch.bfloat16), stream)
     LAUNCHES.bump(KERNEL_FWD)
     return out
 
@@ -204,7 +217,8 @@ def mask_loss_fwd_cuda(src: torch.Tensor, gt_masks: torch.Tensor,
 def mask_loss_bwd_cuda(src: torch.Tensor, gt_masks: torch.Tensor, idx: torch.Tensor,
                        grad: torch.Tensor) -> torch.Tensor:
     """Launch the backward kernel: grad f32 [B*NQ, 3] (d/d focal, inter,
-    prob_sum) -> d src f32 [B, NQ, h, w], zero for unmatched queries."""
+    prob_sum) -> d src [B, NQ, h, w] in src's dtype, zero for unmatched
+    queries."""
     b, nq, h, w = src.shape
     dev = src.device
     src, masks = src.contiguous(), gt_masks.contiguous()
@@ -213,9 +227,10 @@ def mask_loss_bwd_cuda(src: torch.Tensor, gt_masks: torch.Tensor, idx: torch.Ten
     work = _work(b * nq, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch("nopesac_mask_loss_bwd", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+        _launch("nopesac_mask_loss_bwd", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                 + [ctypes.c_void_p], src.data_ptr(), masks.data_ptr(), idx.data_ptr(),
-                work.data_ptr(), grad.data_ptr(), dsrc.data_ptr(), b * nq, h, w, stream)
+                work.data_ptr(), grad.data_ptr(), dsrc.data_ptr(), b * nq, h, w,
+                int(src.dtype == torch.bfloat16), stream)
     LAUNCHES.bump(KERNEL_BWD)
     return dsrc
 
@@ -240,7 +255,7 @@ def fused_focal_dice(src: torch.Tensor, gt_masks: torch.Tensor, tgt_idx: torch.T
                      matched: Optional[torch.Tensor] = None):
     """(focal_sum, inter, prob_sum, tgt_sum), each [B, NQ] f32.
 
-    src [B, NQ, h, w] f32 mask logits; gt_masks [B, NG, 4h, 4w] uint8;
+    src [B, NQ, h, w] f32 or bf16 mask logits; gt_masks [B, NG, 4h, 4w] uint8;
     tgt_idx [B, NQ] matched GT index (clamped to [0, NG)); matched [B, NQ]
     bool or None (every query computed). Unmatched queries give zeros."""
     _check(src, gt_masks, tgt_idx, matched)

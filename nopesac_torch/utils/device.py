@@ -1,4 +1,5 @@
-"""Device resolution, the f32 precision policy and the kernel launch counters."""
+"""Device resolution, the dtype resolver, the precision policy and the kernel
+launch counters."""
 from __future__ import annotations
 
 from typing import Dict, Union
@@ -19,12 +20,27 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_dtype(value: str, key: str) -> torch.dtype:
+    """A config dtype string (MODEL.COMPUTE_DTYPE, BACKBONE_TRAIN_DTYPE,
+    FPN_TRAIN_DTYPE) as a torch dtype; a typo such as "bf16" or "fp32"
+    raises instead of falling back to f32."""
+    if value not in DTYPES:
+        raise ValueError(f"MODEL.{key} must be one of {sorted(DTYPES)}, got {value!r}")
+    return DTYPES[value]
+
+
 def set_f32_parity() -> None:
-    """Full-f32 matmuls and convolutions on the card. cuDNN convolutions
-    default to TF32, which keeps about three decimal digits and breaks parity
-    with the f32 JAX reference."""
+    """The precision policy on the card: full-f32 matmuls and convolutions
+    (cuDNN convolutions default to TF32, which keeps about three decimal
+    digits and breaks parity with the f32 JAX reference), and bf16 GEMMs
+    that accumulate in f32 throughout, as XLA does (cuBLAS may otherwise
+    reduce split-K partial sums in bf16)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 class LaunchCounters:

@@ -227,6 +227,26 @@ def test_mask_loss_kernel_matches_plain(cuda, b, nq, h, w, n_matched):
         assert float((k_grad - p_grad).abs().max()) <= MASK_GRAD_TOL * scale
 
 
+@pytest.mark.parametrize("b,nq,h,w,n_matched", [(2, 50, 24, 32, 6), (32, 50, 120, 160, 12),
+                                                (3, 50, 24, 32, 0)])
+def test_mask_loss_kernel_bf16_logits_match_plain(cuda, b, nq, h, w, n_matched):
+    """bf16 logits (chip_smoke.py phase 8's bounds): f32 sums within rtol
+    1e-4, a bf16 d src within one bf16 ulp of the plain version's, exact
+    zeros for the unmatched queries."""
+    src, masks, tgt, matched = mask_loss_inputs(cuda, 1, b, nq, h, w, n_matched)
+    src = src.to(torch.bfloat16)
+    (k_sums, k_grad), (p_sums, p_grad) = _mask_loss_both(src, masks, tgt, matched,
+                                                         (0.7, -0.3, 0.11, 0.5))
+    torch.cuda.synchronize()
+    assert k_grad.dtype == torch.bfloat16 and all(k.dtype == torch.float32 for k in k_sums)
+    for k, p in zip(k_sums, p_sums):
+        torch.testing.assert_close(k, p, rtol=MASK_SUM_RTOL, atol=0)
+        assert (k[~matched] == 0).all()
+    assert (k_grad[~matched] == 0).all()
+    scale = float(p_grad.float().abs().max())
+    assert float((k_grad.float() - p_grad.float()).abs().max()) <= BF16_ULP * scale
+
+
 @pytest.mark.parametrize("b,nq,h,w,pairs", [
     (2, 50, 24, 32, (0, 99)),           # only the first and the last pair matched
     (3, 12, 30, 44, (0, 35)),           # h, w not multiples of the row tiles or of 32
@@ -328,6 +348,18 @@ def test_bottleneck_kernel_at_the_eval_shapes(cuda, b, cin, cout, h, w, residual
     if cfg["split"] > 1:  # the cluster reduction runs in a fixed order
         again = bottleneck.conv1x1_bn_act(x, wt, scale, shift, residual=res)
         assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("b,cin,cout,h,w,residual", EVAL_SHAPES)
+def test_bottleneck_kernel_bf16_at_the_eval_shapes(cuda, b, cin, cout, h, w, residual):
+    """bf16 at the eight eval shapes (chip_smoke.py phase 11's bound): within
+    one bf16 ulp of the plain version."""
+    x, wt, scale, shift, res = _b4_inputs(cuda, 2, b, cin, cout, h, w, residual, torch.bfloat16)
+    got = bottleneck.conv1x1_bn_act(x, wt, scale, shift, residual=res)
+    ref = bottleneck.conv1x1_bn_act_plain(x, wt, scale, shift, residual=res)
+    assert got.dtype == torch.bfloat16
+    diff = (got.float() - ref.float()).abs()
+    assert bool((diff <= BF16_ULP * ref.float().abs() + 1e-6).all()), float(diff.max())
 
 
 def test_bottleneck_kernel_refuses_autograd(cuda):

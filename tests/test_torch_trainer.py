@@ -394,14 +394,20 @@ def test_resume_is_bit_equal_to_continuing_in_memory(tmp_path, monkeypatch, capl
     Trainer A takes 2 steps, then 2 more in memory; trainer B resumes from
     A's checkpoint at step 2 and takes the same 2. Both continue from a
     fresh loader iterator, as the JAX Trainer does after a resume."""
+    check_resume_bit_equal(tmp_path, monkeypatch, caplog)
+
+
+def check_resume_bit_equal(tmp_path, monkeypatch, caplog, opts=()):
+    """The resume test's body, with further config overrides `opts`."""
+    opts = RESUME_OPTS + list(opts)
     monkeypatch.setattr(trainer_mod, "LOG_PERIOD", 1)
-    a = Trainer(_cfg(get_cfg, tmp_path / "a", RESUME_OPTS), device="cpu")
+    a = Trainer(_cfg(get_cfg, tmp_path / "a", opts), device="cpu")
     a.train(max_iter=2)
     os.makedirs(tmp_path / "b")
     shutil.move(tmp_path / "a" / "model_final.pth", tmp_path / "b" / "model_0000002.pth")
     with open(tmp_path / "b" / "last_checkpoint", "w") as f:
         f.write("model_0000002.pth")
-    b = Trainer(_cfg(get_cfg, tmp_path / "b", RESUME_OPTS), device="cpu")
+    b = Trainer(_cfg(get_cfg, tmp_path / "b", opts), device="cpu")
     with caplog.at_level("INFO"):
         b.resume_or_load(resume=True)
     assert "resumed from step 2" in caplog.text
