@@ -3,7 +3,7 @@
     python -m nopesac_torch.engine.profile [--config-file configs/inference_mp3d.yaml]
         [--batches 5] [--fuse-tail] [--out FILE]
     python -m nopesac_torch.engine.profile --train [--config-file configs/train_mp3d_step3.yaml]
-        [--batches 3] [--out FILE] [KEY VALUE ...]
+        [--batches 3] [--memory] [--out FILE] [KEY VALUE ...]
 
 The eval step: builds the inference model with seeded random weights (with
 `--fuse-tail`, its backbone runs the identity-block tails through kernel B4),
@@ -21,8 +21,12 @@ timed passes of `--batches` batches each:
      time over pass 1's wall time (the profiler slows the host down).
 In the train step the spans are the forward (with the host LSA matcher and
 the criterion inside it) and the optimizer update; the backward is the
-step's span less those two. Needs a CUDA card. Prints one JSON object and,
-with `--out`, writes it there.
+step's span less those two. With `--memory`, one more step runs under the
+caching allocator's history: the blocks live at its peak, summed by the
+innermost line of this package outside `models/layers.py` that allocated
+them (`memory_at_peak`).
+Needs a CUDA card. Prints one JSON object and, with `--out`, writes it
+there.
 """
 from __future__ import annotations
 
@@ -102,6 +106,66 @@ def _train_setup(cfg, n_batches):
     return cfg.SOLVER.IMS_PER_BATCH, step, batches, spans
 
 
+def _site(frames):
+    """The innermost frame of this package in an allocation's Python stack,
+    the shared layers of `models/layers.py` and this file aside (so that a
+    convolution is charged to the model code that called it), as "path:line
+    function"."""
+    if frames and "runpy" in frames[0]["filename"]:
+        frames = frames[::-1]  # innermost first
+    for f in frames:
+        path = f["filename"].replace(os.sep, "/")
+        if "/nopesac_torch/" in path and not path.endswith(("engine/profile.py",
+                                                            "models/layers.py")):
+            return f"{path.split('/nopesac_torch/')[-1]}:{f['line']} {f['name']}"
+    return "outside nopesac_torch"
+
+
+def memory_at_peak(step, batch, top: int = 20) -> dict:
+    """One step under the allocator's history: the bytes live before it
+    (parameters, optimizer state, batches), the step's peak, and the blocks
+    live at the peak summed by allocation site and by file."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.memory._record_memory_history(enabled="all", context="alloc", stacks="python")
+    try:
+        step(batch)
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    events = snap["device_traces"][torch.cuda.current_device()]
+    live, total, peak, at = {}, 0, 0, -1
+    for i, e in enumerate(events):  # first pass: where the peak is
+        if e["action"] == "alloc":
+            live[e["addr"]] = e["size"]
+            total += e["size"]
+            if total > peak:
+                peak, at = total, i
+        elif e["action"] in ("free_requested", "free_completed") and e["addr"] in live:
+            total -= live.pop(e["addr"])
+    live = {}
+    for e in events[:at + 1]:  # second pass: what is live there
+        if e["action"] == "alloc":
+            live[e["addr"]] = (e["size"], _site(e.get("frames", [])))
+        elif e["action"] in ("free_requested", "free_completed"):
+            live.pop(e["addr"], None)
+    sites, files = defaultdict(lambda: [0, 0]), defaultdict(int)
+    for size, site in live.values():
+        sites[site][0] += size
+        sites[site][1] += 1
+        files[site.split(":")[0]] += size
+    gib = lambda n: n / 2**30
+    return {"before_step_gib": gib(base), "step_peak_gib": gib(base + peak),
+            "max_memory_allocated_gib": gib(torch.cuda.max_memory_allocated()),
+            "peak_reached_at": _site(events[at].get("frames", [])) if at >= 0 else None,
+            "live_at_peak_gib": gib(sum(v[0] for v in live.values())),
+            "by_file_gib": {k: gib(v) for k, v in sorted(files.items(), key=lambda kv: -kv[1])},
+            "by_site": [{"site": k, "gib": gib(v[0]), "blocks": v[1]}
+                        for k, v in sorted(sites.items(), key=lambda kv: -kv[1][0])[:top]]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config-file", default=None,
@@ -109,6 +173,8 @@ def main(argv=None) -> int:
     ap.add_argument("--train", action="store_true", help="profile the train step")
     ap.add_argument("--batches", type=int, default=5)
     ap.add_argument("--fuse-tail", action="store_true", help="eval step with kernel B4")
+    ap.add_argument("--memory", action="store_true",
+                    help="one more step under the allocator's history: live memory at its peak")
     ap.add_argument("--out", default=None)
     ap.add_argument("opts", nargs=argparse.REMAINDER, help="KEY VALUE config overrides")
     args = ap.parse_args(argv)
@@ -179,6 +245,8 @@ def main(argv=None) -> int:
         "top_kernels": [{"name": n[:120], "ms_per_batch": ms, "calls_per_batch": c}
                         for n, ms, c in kernels[:15]],
     }
+    if args.memory:
+        result["memory_at_peak"] = memory_at_peak(step, batches[1])
     line = json.dumps(result)
     print(line)
     if args.out:

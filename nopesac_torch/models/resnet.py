@@ -71,24 +71,25 @@ class Bottleneck(Cast, nn.Module):
                                   residual=x, relu=True)
         bdt = self.compute_dtype()
         odt = torch.float32 if self.training else bdt
-        out = self.conv2(self.conv1(x))
+        xb = x.to(bdt)  # one copy in the interior's dtype for conv1 and the shortcut
+        out = self.conv2(self.conv1(xb))
         # conv3 in the interior's dtype; its BN affine, the shortcut's BN,
         # the add and the ReLU in the trunk's
         out = self.conv3.norm.affine(conv2d(out, self.conv3.weight.to(bdt)).to(odt), odt)
         if self.shortcut is None:
             return F.relu(out + x.to(odt))
-        sc = conv2d(x.to(bdt), self.shortcut.weight.to(bdt), stride=self.shortcut.stride)
+        sc = conv2d(xb, self.shortcut.weight.to(bdt), stride=self.shortcut.stride)
         return F.relu(out + self.shortcut.norm.affine(sc.to(odt), odt))
 
 
-class ResNet(nn.Module):
+class ResNet(Cast, nn.Module):
     """ResNet-50; returns the {res2, res3, res4, res5} NCHW feature maps, in
-    `dtype` in eval mode and f32 in train mode."""
+    `dtype` in eval mode and f32 in train mode. Its own `eval_dtype` (set
+    with its layers' by `set_compute_dtype`) is the trunk's in eval mode."""
 
     def __init__(self, fuse_tail: bool = False, dtype: torch.dtype = torch.float32,
                  train_dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
-        self.dtype = dtype
         self.remat = remat
         self.stem = BasicStem(64)
         in_ch, out_ch, bott = 64, 256, 64
@@ -108,7 +109,7 @@ class ResNet(nn.Module):
         set_compute_dtype(self, dtype, train_dtype)
 
     def forward(self, x) -> Dict[str, torch.Tensor]:
-        x = self.stem(x).to(torch.float32 if self.training else self.dtype)
+        x = self.stem(x).to(torch.float32 if self.training else self.eval_dtype)
         remat = self.remat and self.training and torch.is_grad_enabled()
         feats = {}
         for name in self.stage_names:

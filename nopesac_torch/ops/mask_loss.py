@@ -30,6 +30,7 @@ from . import _build
 
 KERNEL_FWD = "mask_loss_fwd"
 KERNEL_BWD = "mask_loss_bwd"
+BF16_SUFFIX = "_bf16"  # the launch count of the bf16-logit variant
 RATIO = 4  # mask logits sit at 1/4 of the image in every config
 MAX_WIDTH = 256  # 32 lanes x 8 columns per lane (csrc/mask_loss.cu)
 
@@ -210,7 +211,7 @@ def mask_loss_fwd_cuda(src: torch.Tensor, gt_masks: torch.Tensor,
                 + [ctypes.c_void_p], src.data_ptr(), masks.data_ptr(), idx.data_ptr(),
                 work.data_ptr(), partials.data_ptr(), out.data_ptr(), b * nq, h, w,
                 int(src.dtype == torch.bfloat16), stream)
-    LAUNCHES.bump(KERNEL_FWD)
+    LAUNCHES.bump(KERNEL_FWD + (BF16_SUFFIX if src.dtype == torch.bfloat16 else ""))
     return out
 
 
@@ -231,7 +232,7 @@ def mask_loss_bwd_cuda(src: torch.Tensor, gt_masks: torch.Tensor, idx: torch.Ten
                 + [ctypes.c_void_p], src.data_ptr(), masks.data_ptr(), idx.data_ptr(),
                 work.data_ptr(), grad.data_ptr(), dsrc.data_ptr(), b * nq, h, w,
                 int(src.dtype == torch.bfloat16), stream)
-    LAUNCHES.bump(KERNEL_BWD)
+    LAUNCHES.bump(KERNEL_BWD + (BF16_SUFFIX if src.dtype == torch.bfloat16 else ""))
     return dsrc
 
 

@@ -73,6 +73,8 @@ def refuse_autograd(kernel: str, *tensors: torch.Tensor) -> None:
                            f"or use its plain version where a gradient is needed")
 
 
-# the kernels of the port; each `ops/` wrapper bumps its own name
-KERNEL_NAMES = ("select_maps", "sinkhorn", "mask_loss_fwd", "mask_loss_bwd", "bottleneck_tail")
+# the kernels of the port; each `ops/` wrapper bumps its own name (B3 counts
+# its bf16-logit variant under a name of its own)
+KERNEL_NAMES = ("select_maps", "sinkhorn", "mask_loss_fwd", "mask_loss_bwd", "mask_loss_fwd_bf16",
+                "mask_loss_bwd_bf16", "bottleneck_tail")
 LAUNCHES = LaunchCounters(KERNEL_NAMES)

@@ -8,22 +8,28 @@ model. Each case runs the same seeded inputs through four versions: JAX in
 f32 and in bf16, the port in f32 and in bf16 (its kernels' plain versions).
 Eager PyTorch rounds after every op while XLA keeps f32 inside fused chains,
 so the port cannot be bit-equal to JAX's bf16; it is held to JAX's own bf16
-noise instead. For each output, with d_jax = max |JAX bf16 - JAX f32|:
-  * max |port bf16 - JAX bf16| <= max(1.5 d_jax, 2^-7 max |JAX f32|), the
-    floor being one bf16 ulp at the output's largest magnitude: the two may
-    round the same value to neighbouring bf16 numbers (XLA rounds a fused
-    chain once, eager PyTorch each op), and 2^-8 max |JAX f32| is less than
-    one ulp wherever that magnitude lies in the upper half of its binade;
-  * the port really rounds where JAX does: over the outputs a test compares,
-    max_k |port bf16 - port f32|_k / s_k lies within [0.25, 4] times
-    max_k d_jax,k / s_k, with s_k = max |JAX f32|_k. The ratio is taken over
-    the group, not per output: an output of a few numbers (a translation)
-    can land on JAX's f32 value by chance, and its d_jax then says nothing;
+noise instead. For each output, with d_jax = max |JAX bf16 - JAX f32| and
+u = one bf16 ulp at max |JAX f32| (2^(e - 7) for 2^e <= max |JAX f32| <
+2^(e + 1), between 2^-8 and 2^-7 of it):
+  * max |port bf16 - JAX bf16| <= max(1.5 d_jax, u). The floor is the least
+    difference two bf16 values at that magnitude can have: the two may round
+    the same value to neighbouring bf16 numbers (XLA rounds a fused chain
+    once, eager PyTorch each op). 2^-8 max |JAX f32| is below one ulp at
+    every magnitude, so it would forbid that difference;
+  * the port really rounds where JAX does: wherever d_jax > u / 2, more than
+    the one final rounding of a bf16 value can move it, the port's own
+    deviation max |port bf16 - port f32| lies within [0.25, 4] x d_jax.
+    Where d_jax <= u / 2 (a few numbers that lie near bf16 values, a mean
+    over many pixels) one rounding more or less changes the deviation by as
+    much as d_jax itself, and the ratio says nothing; each test has at least
+    one output above u / 2;
   * the dtype of every boundary of the policy equals JAX's.
-Measured on the CPU (max |port bf16 - JAX bf16| / d_jax, then the port's
-bf16-vs-f32 deviation / d_jax): see each test's docstring.
+Each test's docstring gives the measured ratios (CPU): err = max |port
+bf16 - JAX bf16| / d_jax, dev = the port's own deviation / d_jax, "-" where
+d_jax <= u / 2.
 """
 import json
+import math
 import os
 import pickle
 
@@ -49,7 +55,6 @@ from torch_cpu import torch_threads  # noqa: F401  (CPU thread budget)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BF16 = "bfloat16"
-RULE_REL = 2.0 ** -7      # floor of the bound, relative to max |JAX f32|: one bf16 ulp
 RULE_MUL = 1.5            # of d_jax
 ROUND_RANGE = (0.25, 4.0)  # the port's own bf16 deviation over d_jax
 LABEL_SLACK = 0.005        # of pixels, beyond twice JAX bf16's own disagreement
@@ -68,28 +73,37 @@ def _dtype(t):
     return str(t.dtype).replace("torch.", "")
 
 
+def bf16_ulp(x):
+    """One bf16 ulp at magnitude x: 2^(e - 7) for 2^e <= x < 2^(e + 1); 0 at 0."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
+
+
 def hold(name, j32, j16, p32, p16, keep=None, record=None):
-    """The value rule of the module docstring on one output; records (err /
-    d_jax, deviation / d_jax) and the scale-free deviations for `rounds`."""
+    """The value and rounding rules of the module docstring on one output;
+    records (err / d_jax, dev / d_jax or None where d_jax <= u / 2)."""
     j32, j16, p32, p16 = (_np(a) for a in (j32, j16, p32, p16))
     if keep is not None:
         j32, j16, p32, p16 = (a[keep] for a in (j32, j16, p32, p16))
     d_jax = float(np.abs(j16 - j32).max())
     err = float(np.abs(p16 - j16).max())
     dev = float(np.abs(p16 - p32).max())
-    scale = float(np.abs(j32).max())
-    bound = max(RULE_MUL * d_jax, RULE_REL * scale)
+    u = bf16_ulp(float(np.abs(j32).max()))
+    bound = max(RULE_MUL * d_jax, u)
     assert err <= bound, (name, err, bound, d_jax)
+    ratio = dev / d_jax if d_jax > u / 2 else None
+    if ratio is not None:
+        assert ROUND_RANGE[0] <= ratio <= ROUND_RANGE[1], (name, dev, d_jax)
     if record is not None:
-        record[name] = (err / d_jax if d_jax > 0 else 0.0, dev / d_jax if d_jax > 0 else None,
-                        dev / scale if scale > 0 else 0.0, d_jax / scale if scale > 0 else 0.0)
+        record[name] = (round(err / d_jax, 3) if d_jax > 0 else 0.0,
+                        None if ratio is None else round(ratio, 3))
 
 
 def rounds(record):
-    """The group rule: the port's scale-free bf16 deviation over JAX's."""
-    ratio = max(r[2] for r in record.values()) / max(r[3] for r in record.values())
-    assert ROUND_RANGE[0] <= ratio <= ROUND_RANGE[1], ratio
-    return ratio
+    """The outputs whose rounding `hold` checked (d_jax above half an ulp);
+    a test needs one."""
+    checked = [k for k, r in record.items() if r[1] is not None]
+    assert checked, ("no output with d_jax above half a bf16 ulp", record)
+    return checked
 
 
 @pytest.fixture(scope="module")
@@ -152,8 +166,9 @@ def _sub(sd, prefix):
 def test_resnet(shared, mode):
     """res2..res5: eval in C = bf16 (all bf16); train with BT = bf16 (bf16
     stem and block interiors, f32 trunk); train with BT = f32 (all f32, equal
-    to the f32 backbone whatever C is). Measured err / d_jax and deviation /
-    d_jax: see the printed record."""
+    to the f32 backbone whatever C is). Measured err / dev: eval res2 0.35 /
+    1.00, res3 0.97 / 1.00, res4 0.92 / 0.93, res5 0.94 / 1.00; train res2
+    0.19 / 1.00, res3 0.40 / 0.99, res4 0.66 / 0.93, res5 0.87 / 0.97."""
     variables, sd, _ = shared
     u = images(11).reshape(2 * PAIRS, H, 128, 3).astype(np.float32)
     x = (u - 128.0) / 64.0
@@ -184,7 +199,21 @@ def test_resnet(shared, mode):
             hold(k, *(_nchw(refs[n][k]) for n in ("f32", "bf16")), got["f32"][k],
                  got["bf16"][k], record=record)
     if record:
-        print(mode, rounds(record), record)
+        rounds(record)
+    print(mode, record)
+
+
+def test_set_compute_dtype_owns_the_trunk_dtype():
+    """`set_compute_dtype` on a built ResNet sets its trunk's eval dtype with
+    its layers': an f32 backbone set to bf16 returns bf16 maps in eval mode
+    and f32 maps in train mode."""
+    from nopesac_torch.models.layers import set_compute_dtype
+
+    net = set_compute_dtype(ResNet(), torch.bfloat16).eval()
+    x = torch.from_numpy(np.random.default_rng(3).normal(0, 1, (1, 3, 64, 64)).astype(np.float32))
+    with torch.no_grad():
+        assert {v.dtype for v in net(x).values()} == {torch.bfloat16}
+        assert {v.dtype for v in net.train()(x).values()} == {torch.float32}
 
 
 def _jax_dt(dt):
@@ -197,8 +226,10 @@ def test_plane_head_pixel_path(shared, mode):
     decoder, pixel_embedding, pixel_plane_center) in C = bf16 in eval mode
     and in FT = bf16 in train mode (batch-statistics BN, dropout 0); the
     input projection, the transformer and the query-side heads f32; the mask
-    logits f32. Measured err / d_jax and deviation / d_jax: see the printed
-    record."""
+    logits f32. Measured err / dev: eval pred_mask_logits 0.80 / 1.05,
+    pixel_centers 1.20 / 0.79; train 0.57 / 1.07 and 0.79 / 1.06;
+    pred_logits and pred_params (f32 from f32 features) d_jax 0, the port
+    within 1.5e-6 of max |f32|."""
     variables, sd, _ = shared
     train = mode == "train"
     feats = _features(21)
@@ -236,14 +267,17 @@ def test_plane_head_pixel_path(shared, mode):
         assert _dtype(got["bf16"][k]) == _dtype(refs["bf16"][k]), k
         hold(k, *((_nchw if k == "pixel_centers" else _np)(refs[n][k]) for n in ("f32", "bf16")),
              got["f32"][k], got["bf16"][k], record=record)
-    print(mode, rounds(record), record)
+    rounds(record)
+    print(mode, record)
 
 
 @pytest.mark.parametrize("mode", ["eval", "train"])
 def test_pixel_camera_head(shared, mode):
     """PixelCameraHead (pixel decoder, conv stacks with their trainable BN,
     the correlation softmax, the pose regressors) in C = bf16 in both modes.
-    Measured err / d_jax and deviation / d_jax: see the printed record."""
+    Measured err / dev: eval tran 0.86 / 0.51, rot 1.87 / 1.00 (one ulp of
+    0.64), tran_feat 0.70 / 1.00, rot_feat 0.95 / 0.83; train (batch
+    statistics) 1.48 / 2.12, 0.22 / 0.93, 0.74 / 0.96, 0.64 / 1.06."""
     variables, sd, _ = shared
     train = mode == "train"
     feats = _features(31)
@@ -269,14 +303,17 @@ def test_pixel_camera_head(shared, mode):
         assert _dtype(got["bf16"][k]) == _dtype(refs["bf16"][k]), k
         hold(k, *(refs[n][k] for n in ("f32", "bf16")), got["f32"][k], got["bf16"][k],
              record=record)
-    print(mode, rounds(record), record)
+    rounds(record)
+    print(mode, record)
 
 
 def test_refine(shared):
     """The NOPE-SAC refinement in C = bf16 on f32 plane sequences and bf16
     poses and features: the hypotheses, their scores and the fused poses in
-    bf16, the distances f32. Measured err / d_jax and deviation / d_jax: see
-    the printed record."""
+    bf16, the distances f32. Measured err / dev: trans_all 0.81 / -, rots_all
+    1.05 / 1.26, score_rot 0 / 1.00, score_trans 0 / -, l2_dist 1.19 / 1.22,
+    tran_soft 0 / -, rot_soft 0.78 / 0.77, tran_avg_excl 0.36 / 1.00,
+    rot_avg_incl 0.41 / 0.85."""
     variables, sd, _ = shared
     rng = np.random.default_rng(41)
     b, m = PAIRS, 50
@@ -310,7 +347,8 @@ def test_refine(shared):
         assert _dtype(got["bf16"][k]) == _dtype(refs["bf16"][k]), k
         hold(k, *(refs[n][k] for n in ("f32", "bf16")), got["f32"][k], got["bf16"][k],
              record=record)
-    print(rounds(record), record)
+    rounds(record)
+    print(record)
 
 
 # --------------------------------------------------------------- eval slice
@@ -347,7 +385,14 @@ def test_eval_step_bf16_matches_jax(eval_outputs, port):
     planes and the number of matches equal; the cameras and log_scores by
     the rule; labels agree with JAX bf16 as well as JAX bf16 agrees with JAX
     f32, within twice its disagreement plus 0.5% of pixels. Measured err /
-    d_jax and deviation / d_jax: see the printed record."""
+    dev, unfused: camera.rot (and its avgRef0, softRef0 copies) 0.73 / 1.00,
+    camera_init.rot 1.93 / 1.03 (one ulp of 0.64), camera_init.tran 6.14 / -
+    (one ulp, 1.2e-4, of 0.020; d_jax 2.0e-5), camera_initRec.rot 0.81 /
+    1.00, the other translations 0 / 1.00 or 0 / -, log_scores 0.24 / -;
+    fused: the same but camera_init.rot 0 / 1.00, camera_initRec.rot 0.05 /
+    1.00, log_scores 0.27 / -. Labels differ from JAX bf16's on 0.33 and
+    0.28 of the pixels of the two views (fused 0.37, 0.29), JAX bf16 from
+    JAX f32 on 0.35 and 0.31 (seeded weights: near-equal probabilities)."""
     o = eval_outputs
     j32, j16, p32, p16 = o["jax_float32"], o["jax_bfloat16"], o["port_float32"], o[port]
     assert sorted(p16) == sorted(j16)
@@ -371,7 +416,8 @@ def test_eval_step_bf16_matches_jax(eval_outputs, port):
         ours = (seg[port] != seg["jax_bfloat16"]).mean()
         labels[view] = (float(ours), float(own))
         assert ours <= 2 * own + LABEL_SLACK, (view, ours, own)
-    print(port, rounds(record), labels, record)
+    rounds(record)
+    print(port, labels, record)
 
 
 # ------------------------------------------------------ evaluation entry point

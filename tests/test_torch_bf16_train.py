@@ -11,14 +11,16 @@ bf16 (one jitted value-and-grad each, compiled to round every op to its
 dtype), the port in f32 and in bf16, each port step on the Hungarian match
 of its JAX twin (seeded weights leave near-ties that bf16 noise can flip).
 With d_jax = |JAX bf16 - JAX f32|:
+  * the backbone features and every supervision level's class logits, plane
+    parameters and mask logits by tests/test_torch_bf16_eval.py's rule (per
+    element, then the port's own deviation per output);
   * every loss, relative to |JAX f32|: |port bf16 - JAX bf16| <= max(1.5 x
-    the largest relative d_jax of its group, 1e-3), the floor one bf16 ulp
-    (2^-7) for a loss JAX returns in bf16. The groups are the detection
-    losses and the camera and matching losses. A loss's own d_jax is one
-    draw of the bf16 noise (an eager port and XLA round differently, and the
-    two draws add), so the bound is the group's worst; and the port's own
-    worst relative bf16-vs-f32 deviation in a group lies within [0.25, 4]
-    times JAX's;
+    its own relative d_jax, f), f = 1e-3, or one bf16 ulp of the loss if
+    that is more and JAX returns the loss in bf16. Where a loss's own d_jax
+    lies under f, LEVEL_NOISE may name it, with its reason: it is then held
+    at 1.5 x the largest d_jax of the same loss over the decoder's levels.
+    Wherever d_jax exceeds half a bf16 ulp of the loss, the port's own
+    deviation lies within [0.25, 4] x d_jax;
   * every module's gradient: the relative norm of port bf16 - JAX bf16 is at
     most max(2 x JAX's own bf16-vs-f32 relative gap, 1e-2);
   * the BN running statistics by tests/test_torch_bf16_eval.py's rule;
@@ -50,7 +52,7 @@ from nopesac_torch.models import nopesac as nopesac_mod
 from nopesac_torch.models.layers import BatchNorm2d
 from nopesac_torch.ops import mask_loss
 from nopesac_torch.utils.weights import state_dict_from_jax
-from test_torch_bf16_eval import ROUND_RANGE, RULE_MUL, hold, rounds
+from test_torch_bf16_eval import ROUND_RANGE, RULE_MUL, _dtype, bf16_ulp, hold, rounds
 from test_torch_losses import B3_PALLAS_FWD, B3_PALLAS_GRAD, B3_REF_TOL, _jax_b3, _mask_inputs
 from test_torch_train import (H, MATCH_GAP, MODULES, W, _numpy_batch, _perturb_stats,
                               _second_best_gap, _separate_queries)
@@ -60,10 +62,19 @@ from torch_cpu import torch_threads  # noqa: F401  (CPU thread budget)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEP3 = os.path.join(REPO, "configs", "train_mp3d_step3.yaml")
 LOSS_REL = 1e-3           # the loss rule's floor, relative to |JAX f32|
-BF16_ULP = 2.0 ** -7      # ... and for a loss JAX returns in bf16
+BF16_ULP = 2.0 ** -7      # relative bf16 ulp bound of a rounded gradient (B3)
 GRAD_MUL, GRAD_FLOOR = 2.0, 1e-2
-DETECTION_LOSSES = ("loss_ce", "loss_mask", "loss_dice", "loss_center", "loss_param_l1",
-                    "loss_param_cos", "loss_q")
+# losses whose own d_jax lies under the floor and which are held at their
+# levels' noise instead, and why (CPU numbers, relative to |JAX f32|)
+LEVEL_NOISE = {
+    "loss_ce": "a cross-entropy averaged over 2 x 50 queries, whose bf16 noise cancels in "
+               "JAX's mean (d_jax 2.4e-4, 8.9e-4 at aux level 1); its inputs, the class "
+               "logits of every level, agree per element (test_detection_outputs_match_jax)",
+    "loss_param_cos": "a mean cosine over the matched planes (d_jax 8.0e-4, 2.3e-2 at aux "
+                      "level 1); its inputs, the plane parameters of every level, agree per "
+                      "element (test_detection_outputs_match_jax)",
+}
+HEAD_KEYS = ("pred_logits", "pred_params", "pred_mask_logits")
 F32_KEYS = ["MODEL.COMPUTE_DTYPE", "float32", "MODEL.BACKBONE_TRAIN_DTYPE", "float32"]
 # XLA may keep a fused chain of bf16 ops in f32 and round once at its end;
 # the reference step rounds every op to its dtype, as jnp's semantics say
@@ -94,10 +105,12 @@ def _jax_step(jmodel, variables, batch, aim_key):
     def detect_costs(m, batch):
         t0, t1 = jax_unpack_targets(batch["targets0"]), jax_unpack_targets(batch["targets1"])
         targets = jax.tree_util.tree_map(lambda a, c: jnp.concatenate([a, c]), t0, t1)
-        _, out, _ = m.detect(jnp.concatenate([batch["image0"], batch["image1"]]), train=True)
+        feats, out, _ = m.detect(jnp.concatenate([batch["image0"], batch["image1"]]),
+                                 train=True)
         levels = [out] + list(out["aux_outputs"])
         return ([JCR.compute_match_cost(o, targets, cost_w) for o in levels],
-                JCR.match_planes_multi(levels, targets, cost_w))
+                JCR.match_planes_multi(levels, targets, cost_w),
+                (feats, [{k: o[k] for k in HEAD_KEYS} for o in levels]))
 
     def step(variables, batch):
         def loss_fn(params):
@@ -109,9 +122,9 @@ def _jax_step(jmodel, variables, batch, aim_key):
 
         (_, (losses, new_bs)), grads = jax.value_and_grad(loss_fn, has_aux=True)(
             variables["params"])
-        (costs, matches), _ = jmodel.apply(variables, batch, method=detect_costs,
-                                           mutable=["batch_stats"])
-        return losses, grads, new_bs, costs, matches
+        (costs, matches, detected), _ = jmodel.apply(variables, batch, method=detect_costs,
+                                                     mutable=["batch_stats"])
+        return losses, grads, new_bs, costs, matches, detected
 
     compiled = jax.jit(step).lower(variables, batch).compile(NO_EXCESS_PRECISION)
     return jax.tree_util.tree_map(np.asarray, compiled(variables, batch))
@@ -184,14 +197,25 @@ def _dtype_hooks(seen):
     return hooks
 
 
+def _detect_hooks(detected):
+    """Hooks keeping the backbone's features and the plane head's outputs of
+    every supervision level."""
+    def keep(name):
+        def fn(_, __, out):
+            detected[name] = out[0] if isinstance(out, tuple) else out
+        return fn
+    return lambda model: [(model.backbone, keep("feats")), (model.sem_seg_head, keep("head"))]
+
+
 @pytest.fixture(scope="module")
 def port_steps(shared):
-    seen = {}
+    seen, detected = {}, {"bfloat16": {}, "float32": {}}
     refs = shared["refs"]
-    out = {"bfloat16": _port_step(shared, hooks=_dtype_hooks(seen),
-                                  matches=refs["bfloat16"][4]),
-           "float32": _port_step(shared, F32_KEYS, matches=refs["float32"][4])}
-    return out, {k: v.dtype for k, v in seen.items()}
+    hooks16 = lambda m: _dtype_hooks(seen)(m) + _detect_hooks(detected["bfloat16"])(m)
+    out = {"bfloat16": _port_step(shared, hooks=hooks16, matches=refs["bfloat16"][4]),
+           "float32": _port_step(shared, F32_KEYS, hooks=_detect_hooks(detected["float32"]),
+                                 matches=refs["float32"][4])}
+    return out, {k: v.dtype for k, v in seen.items()}, detected
 
 
 def test_match_is_optimal_for_jax_costs(shared):
@@ -232,39 +256,73 @@ def test_match_is_optimal_for_jax_costs(shared):
     print("match blocks decided beyond the cost difference:", decided, "of", len(costs) * b2)
 
 
-def _loss_group(key):
-    return "detection" if key.startswith(DETECTION_LOSSES) else "camera and matching"
+def test_detection_outputs_match_jax(shared, port_steps):
+    """The train step's backbone features (f32 trunk) and the plane head's
+    class logits, plane parameters and mask logits at each of the three
+    supervision levels, by the value and rounding rules, with JAX's dtypes.
+    Measured (CPU), err / dev: res2 0.08 / 1.00, res3 0.43 / 1.00, res4 0.66
+    / 0.89, res5 0.88 / 0.99; class logits 1.14 / -, 1.04 / -, 0.64 / -;
+    plane parameters 0.40 / 1.22, 0.43 / 1.23, 1.09 / 1.32; mask logits 0.93
+    / 1.04, 0.76 / 0.80, 0.77 / 0.92 (final level, aux 0, aux 1)."""
+    (jf32, jl32), (jf16, jl16) = (shared["refs"][dt][5] for dt in ("float32", "bfloat16"))
+    got16, got32 = port_steps[2]["bfloat16"], port_steps[2]["float32"]
+    levels = lambda o: [o] + list(o["aux_outputs"])
+    record = {}
+    for k in ("res2", "res3", "res4", "res5"):
+        p16, p32 = (g["feats"][k].detach().permute(0, 2, 3, 1) for g in (got16, got32))
+        assert _dtype(p16) == _dtype(jf16[k]) == "float32", k
+        hold(k, jf32[k], jf16[k], p32, p16, record=record)
+    for level, j32, j16, p32, p16 in zip(("final", "aux0", "aux1"), jl32, jl16,
+                                         levels(got32["head"]), levels(got16["head"])):
+        for k in HEAD_KEYS:
+            assert _dtype(p16[k]) == _dtype(j16[k]), (level, k)
+            hold(f"{k} {level}", j32[k], j16[k], p32[k], p16[k], record=record)
+    rounds(record)
+    print("detection", record)
+
+
+def _level_family(key):
+    """The same loss at every supervision level: loss_ce, loss_ce_0, loss_ce_1."""
+    stem = key[:-2] if key[-2:] in ("_0", "_1") else key
+    return (stem, f"{stem}_0", f"{stem}_1")
 
 
 def test_losses_match_jax(shared, port_steps):
     """Every loss, its dtype as JAX's (the refinement's score losses bf16,
-    the rest f32), by the loss rule of the module docstring. Measured (CPU):
-    the detection losses within 0.37 of the group bound (worst relative
-    difference 8.5e-3 against JAX's own worst 2.3e-2), the camera and
-    matching losses equal to JAX bf16's or within 1.9e-3 relative."""
+    the rest f32), by the loss rule of the module docstring. Measured (CPU),
+    err / own d_jax: the detection losses 0.01-1.05, but for loss_ce 4.67,
+    loss_ce_0 4.27 and loss_dice_0 2.54 (under the floor: 1.1e-3, 5.3e-4 and
+    5.4e-5) and loss_param_cos 1.71; loss_ce at 0.83 and loss_param_cos at
+    0.04 of their LEVEL_NOISE bound. The camera and matching losses 0-0.76.
+    The port's deviation / d_jax 0.57-1.98 over the 21 losses whose d_jax
+    exceeds half an ulp (loss_mask at its three levels 1.60-1.98)."""
     (m16, l16), (m32, l32) = port_steps[0]["bfloat16"], port_steps[0]["float32"]
     r16, r32 = shared["refs"]["bfloat16"][0], shared["refs"]["float32"][0]
     assert sorted(l16) == sorted(r16)
     rel = {}
     for k in r16:
-        assert str(l16[k].dtype).replace("torch.", "") == str(r16[k].dtype), (k, l16[k].dtype)
+        assert _dtype(l16[k]) == str(r16[k].dtype), (k, l16[k].dtype)
         scale = max(abs(float(r32[k])), 1e-30)
-        rel[k] = (abs(float(l16[k]) - float(r16[k])) / scale,
+        rel[k] = (abs(l16[k].item() - float(r16[k])) / scale,
                   abs(float(r16[k]) - float(r32[k])) / scale,
-                  abs(float(l16[k]) - float(l32[k])) / scale)
-    for group in ("detection", "camera and matching"):
-        keys = [k for k in rel if _loss_group(k) == group]
-        noise = max(rel[k][1] for k in keys)
-        bad = {}
-        for k in keys:
-            floor = BF16_ULP if r16[k].dtype == jnp.bfloat16 else LOSS_REL
-            if not rel[k][0] <= max(RULE_MUL * noise, floor):
-                bad[k] = rel[k]
-        assert not bad, (group, noise, bad)
-        ratio = max(rel[k][2] for k in keys) / noise
-        assert ROUND_RANGE[0] <= ratio <= ROUND_RANGE[1], (group, ratio)
-        print(group, "worst err", max(rel[k][0] for k in keys), "JAX's worst", noise,
-              "rounding ratio", ratio)
+                  abs(l16[k].item() - l32[k].item()) / scale,
+                  bf16_ulp(scale) / scale)
+    bad, checked = {}, {}
+    for k, (err, d_jax, dev, ulp) in rel.items():
+        floor = max(LOSS_REL, ulp) if r16[k].dtype == jnp.bfloat16 else LOSS_REL
+        noise = d_jax
+        if k in LEVEL_NOISE:
+            assert d_jax < floor, (k, d_jax, "no longer under the floor: drop it from LEVEL_NOISE")
+            noise = max(rel[f][1] for f in _level_family(k) if f in rel)
+        if not err <= max(RULE_MUL * noise, floor):
+            bad[k] = (err, noise, floor)
+        if d_jax > ulp / 2:
+            checked[k] = dev / d_jax
+            if not ROUND_RANGE[0] <= dev / d_jax <= ROUND_RANGE[1]:
+                bad[k] = (dev, d_jax)
+    assert not bad, bad
+    assert checked, "no loss with d_jax above half a bf16 ulp: the rounding check held nothing"
+    print("losses (err, d_jax, dev, ulp)", rel, "rounding", checked)
 
 
 def test_gradients_match_jax(shared, port_steps):
@@ -294,7 +352,10 @@ def test_gradients_match_jax(shared, port_steps):
 
 def test_bn_running_stats_match_jax(shared, port_steps):
     """The trainable BNs' running statistics after the step (the camera conv
-    stacks in C = bf16, the top-down decoder in FT = f32) by the rule."""
+    stacks in C = bf16, the top-down decoder in FT = f32) by the rule.
+    Measured err / d_jax <= 1.23; one statistic has d_jax above half an ulp
+    (the top-down up_conv1's running mean: err 0.51, dev 0.95), the others
+    are means over every pixel."""
     (m16, _), (m32, _) = port_steps[0]["bfloat16"], port_steps[0]["float32"]
     want = {dt: state_dict_from_jax(shared["variables"]["params"], shared["refs"][dt][2],
                                     image_size=(H, W)) for dt in ("float32", "bfloat16")}
@@ -307,7 +368,8 @@ def test_bn_running_stats_match_jax(shared, port_steps):
                 assert got16[key].dtype == torch.float32, key
                 hold(key, want["float32"][key], want["bfloat16"][key], got32[key], got16[key],
                      record=record)
-    print("bn", rounds(record))
+    rounds(record)
+    print("bn", record)
 
 
 def test_policy_dtypes(port_steps):

@@ -235,9 +235,13 @@ def test_mask_loss_kernel_bf16_logits_match_plain(cuda, b, nq, h, w, n_matched):
     zeros for the unmatched queries."""
     src, masks, tgt, matched = mask_loss_inputs(cuda, 1, b, nq, h, w, n_matched)
     src = src.to(torch.bfloat16)
+    names = ("mask_loss_fwd", "mask_loss_bwd", "mask_loss_fwd_bf16", "mask_loss_bwd_bf16")
+    before = [LAUNCHES[n] for n in names]
     (k_sums, k_grad), (p_sums, p_grad) = _mask_loss_both(src, masks, tgt, matched,
                                                          (0.7, -0.3, 0.11, 0.5))
     torch.cuda.synchronize()
+    # counted as the bf16-logit variant, not as the f32 one
+    assert [LAUNCHES[n] - c for n, c in zip(names, before)] == [0, 0, 1, 1]
     assert k_grad.dtype == torch.bfloat16 and all(k.dtype == torch.float32 for k in k_sums)
     for k, p in zip(k_sums, p_sums):
         torch.testing.assert_close(k, p, rtol=MASK_SUM_RTOL, atol=0)
