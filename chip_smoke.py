@@ -109,8 +109,29 @@ Phases, in order; any failure exits non-zero before the last line:
      into the card's step) at tests/test_torch_bf16_train.py's loss and
      gradient rules, with the card's own bf16-vs-f32 deviation in place of
      JAX's (for the losses, the larger of the card's and the CPU's).
+ 17. training and evaluation across ranks (`parallel/dist.py:launch`), after
+     phase 14 with the parent's cached memory freed: A, one rank over NCCL,
+     and B, two ranks over gloo on the one card (NCCL refuses two ranks on
+     one device), each a `Trainer` from the same seeded weights (phase 9's
+     config, dropout 0, BASE_LR 1e-7, queries pulled apart as in phase 10)
+     on the same 16 synthetic pairs of 480x640 with 12 planes per view (8 +
+     8 in B, each rank making its own from per-pair seeds) and the same AIM
+     poses split per rank: a warm-up step and 2 steps, then `Trainer.test`
+     over 16 pairs (8 per rank in B, gathered). B is held to A at phase
+     10's limits on the global values (every loss of every step, the
+     gradient norm, the parameters after the steps), the BN statistics
+     within 5e-5 and equal on B's ranks, the parameters bit-equal on B's
+     ranks, the evaluation at phase 13's (keys equal, AP, matching and
+     camera accuracies equal, camera errors within 1e-3; the plane
+     parameters' errors printed); each rank's B3 at 3 launches per step and
+     B1/B2 at one per evaluation batch, no skipped step, continuous.pkl
+     written once with 16 pairs. Prints each launch's ms/step, peak memory
+     per rank, the gradient all-reduce's ms and MiB, and B's evaluation
+     pairs/s: two processes sharing one card over host-staged gloo, not a
+     scaling figure. Each launch has a timeout; a rank that fails or hangs
+     fails the phase.
 Phases 11-13 and 15 run right after phase 7, while the eval model is on the
-card; phases 14 and 16 run after phase 10.
+card; phases 14 and 16 run after phase 10, phase 17 after phase 14.
 Phases 6, 7 and 12 hold the card to the CPU, or the fused path to the
 unfused one, as the CPU is held to JAX in tests/test_torch_slice.py: valid
 planes equal, labels agree on >= 99.9% of pixels, log-scores within 1.5e-3
@@ -138,6 +159,12 @@ times B1 and B2 of the port in DIR (a checkout of any of its commits, e.g. a
 parent unpacked with `git archive`) on phase 3's and 4's inputs, through the
 functions the eval path calls, with this script's timing code, and prints
 one JSON line; run it for a parent and a change in turns in one call.
+
+    python3 chip_smoke.py --ranks N
+
+runs phases 1, 2 and 17 alone on a machine with N cards, with a launch C
+of N ranks over NCCL, one per card, 16 / N pairs each, in B's place, held
+to A as B is: the NCCL path across cards.
 """
 import argparse
 import copy
@@ -195,6 +222,13 @@ TRAINER_TEST_PAIRS = 8   # its test split: two eval batches
 TRAINER_STEPS = 4
 TRAINER_HW = (480, 640)
 TRAINER_SPLIT = "chip_smoke_trainer_test"
+RANK_PAIRS = 16        # phase 17's global batch and evaluation split
+RANK_STEPS = 3         # a warm-up step and 2 timed ones
+RANK_TIMEOUT_S = 300   # per launch: a rank that fails or hangs fails the phase
+BN_TOL = 5e-5          # tests/test_torch_train.py
+CAM_TOL = 1e-3         # tests/test_torch_eval.py
+CAMERA_ERRORS = ("T median err", "T mean err", "R median err", "R mean err")
+PLANE_ERRORS = ("mean_normal", "median_normal", "mean_offset", "median_offset")
 
 
 class SmokeFailure(Exception):
@@ -1266,6 +1300,236 @@ def run_trainer(torch, dev, card, step_ms):
         shutil.rmtree(d, ignore_errors=True)
 
 
+def rank_cfg(out_dir):
+    """Phase 17's config: phase 9's (train_mp3d_step3.yaml, f32, REMAT off,
+    16 pairs of 480x640) with dropout 0, seeded weights, the evaluation
+    artifacts on and BASE_LR 1e-7. AdamW's first updates are about lr *
+    sign(g), and where a gradient entry sits at the rounding noise its sign
+    differs between A and B (tests/test_torch_trainer.py:LOOP_OPTS); at
+    1e-6 the pose head's initial rotations moved by up to 6e-2 per step and
+    A's and B's by 3e-2 apart after two, which carried one pair's across
+    w = 0, where the AIM auto-encoder's input flips its sign
+    (loss_rot_initCamRec 8% apart at the third step; NVIDIA H100 80GB HBM3,
+    700 W). Each step moves them ten times less at 1e-7."""
+    return load_train_cfg(TRAIN_CONFIG, F32_TRAIN + [
+        "SOLVER.IMS_PER_BATCH", str(RANK_PAIRS), "INPUT.IMAGE_SIZE", "(480, 640)",
+        "MODEL.SEM_SEG_HEAD.DROPOUT", "0.0", "MODEL.WEIGHTS", "", "SOLVER.BASE_LR", "1e-7",
+        "TEST.EVAL_FULL_SCENE", "True",
+        "OUTPUT_DIR", out_dir])
+
+
+def rank_batch(cfg, lo, hi, dev):
+    """Pairs lo..hi-1 of phase 17's global batch (phase 9's generator, 12
+    planes per view), each from a seed of its own, so that a rank makes only
+    its own pairs."""
+    import numpy as np
+
+    from nopesac_torch.data.mapper import PairMapper, collate
+    from nopesac_torch.data.packing import batch_to_device
+    from nopesac_torch.data.synthetic import make_pair
+
+    h, w = cfg.INPUT.IMAGE_SIZE
+    mapper = PairMapper(cfg.MODEL.SEM_SEG_HEAD.NUM_OBJECT_QUERIES, (h, w), cfg.MODEL.PIXEL_MEAN,
+                        cfg.MODEL.PIXEL_STD)
+    pairs = [make_pair(np.random.default_rng([17, i]), n_planes=TRAIN_PLANES, h=h, w=w,
+                       pair_id=i) for i in range(lo, hi)]
+    return batch_to_device(collate([mapper(p) for p in pairs]), dev)
+
+
+def ranks_rank(out_dir):
+    """One rank of phase 17 (spawned by `parallel/dist.py:launch`): a
+    `Trainer` from the seeded weights (queries pulled apart as in phase 10),
+    this rank's share of the 16 pairs and of the AIM random poses, a warm-up
+    step and 2 timed ones of its `TrainStep`, the gradient all-reduce timed
+    on its own, then `Trainer.test` over 16 synthetic pairs. Returns what
+    the parent holds the launches to."""
+    import hashlib
+
+    import torch
+    import torch.distributed as tdist
+
+    from nopesac_torch.data.synthetic import make_dataset
+    from nopesac_torch.engine.train import reduce_gradients
+    from nopesac_torch.engine.trainer import Trainer
+    from nopesac_torch.losses import camera_losses
+    from nopesac_torch.models.layers import BatchNorm2d
+    from nopesac_torch.models.nopesac import AIM_RAND_POSES
+    from nopesac_torch.parallel.dist import rank, world_size
+    from nopesac_torch.utils.device import LAUNCHES, set_f32_parity
+
+    set_f32_parity()
+    r, world = rank(), world_size()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    if tdist.get_backend() == "nccl":  # the group's own collective, at any world size
+        one = torch.ones(1, device=dev)
+        tdist.all_reduce(one)
+        if float(one) != world:
+            raise RuntimeError(f"NCCL all-reduce of ones gave {float(one)} on {world} ranks")
+    cfg = rank_cfg(out_dir)
+    trainer = Trainer(cfg, device=dev)
+    separate_queries(torch, trainer.model, seed=1)
+    t0 = time.perf_counter()
+    per = RANK_PAIRS // world
+    batch = rank_batch(cfg, r * per, (r + 1) * per, dev)
+    gen = torch.Generator().manual_seed(3)
+    n_aim = RANK_PAIRS * max(AIM_RAND_POSES // RANK_PAIRS, 1)
+    k = n_aim // world
+    aim = [a[r * k:(r + 1) * k].to(dev) for a in (camera_losses.rand_aim_rot(gen, n_aim),
+                                                 camera_losses.rand_aim_trans(gen, n_aim))]
+    data_s = time.perf_counter() - t0
+    step = trainer.train_step
+    LAUNCHES.reset()
+    metrics, times = [], []
+    for i in range(RANK_STEPS):
+        torch.cuda.synchronize()
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        row = step(batch, *aim)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append({name: float(v) for name, v in row.items()})
+    train_counts = LAUNCHES.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    n_bytes = reduce_gradients(step.params)  # the last step's gradients once more
+    torch.cuda.synchronize()
+    reduce_s = time.perf_counter() - t0
+    del batch
+    test_pairs = make_dataset(n_pairs=RANK_PAIRS, n_planes=TRAIN_PLANES, seed=23,
+                              h=cfg.INPUT.IMAGE_SIZE[0], w=cfg.INPUT.IMAGE_SIZE[1])
+    LAUNCHES.reset()
+    results = trainer.test(test_pairs)
+    eval_counts = LAUNCHES.snapshot()
+    trainer.close()
+    params = torch.cat([p.detach().reshape(-1) for p in trainer.model.parameters()]).cpu()
+    out = {"rank": r, "world": world, "backend": tdist.get_backend(), "metrics": metrics,
+           "step_ms": statistics.mean(times[1:]) * 1e3, "peak": peak,
+           "reduce_ms": reduce_s * 1e3, "reduce_mb": n_bytes / 2**20, "data_s": data_s,
+           "train_counts": train_counts, "eval_counts": eval_counts,
+           "results": {name: float(v) for name, v in results.items()},
+           "eval_stats": trainer.last_eval_stats,
+           "bn": {n: (m.running_mean.cpu(), m.running_var.cpu())
+                  for n, m in trainer.model.named_modules() if isinstance(m, BatchNorm2d)},
+           "params_digest": hashlib.sha256(params.numpy().tobytes()).hexdigest()}
+    if r == 0:
+        out["params"] = params
+    return out
+
+
+def launch_ranks(torch, card, what, n, backend):
+    """One launch of phase 17: `n` ranks of `ranks_rank` over `backend`,
+    their times printed and their launch counts, skip guard and artifacts
+    checked. Returns the ranks' results."""
+    import pickle
+    import shutil
+
+    from nopesac_torch.parallel.dist import launch
+
+    out_dir = os.path.join(REPO, "output", f"ranks_{what}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        ranks = launch(ranks_rank, n, device="cuda", backend=backend, args=(out_dir,),
+                       timeout_s=RANK_TIMEOUT_S)
+    except Exception as e:  # a rank that raised, exited or hung
+        raise SmokeFailure(f"ranks {what}: the launch failed: {e!r}")
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "continuous.pkl"), "rb") as f:
+        n_art = len(pickle.load(f))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    lead = ranks[0]
+    reduce = (f"gradient all-reduce {lead['reduce_ms']:.2f} ms for {lead['reduce_mb']:.1f} MiB"
+              if n > 1 else "gradient all-reduce: none at world size 1")
+    print(f"[ranks] {what}: {n} rank(s) over {lead['backend']} on "
+          f"{min(n, torch.cuda.device_count())} card(s), {RANK_PAIRS // n} pairs of 480x640 per "
+          f"rank: {[round(x['step_ms'], 2) for x in ranks]} ms/step (steps 2-3), peak memory per "
+          f"rank {[round(x['peak'] / 2**30, 2) for x in ranks]} GiB, {reduce}; evaluation of "
+          f"{RANK_PAIRS} pairs {lead['eval_stats']}; launch {wall:.1f} s (pairs made in "
+          f"{[round(x['data_s'], 1) for x in ranks]} s); on {card}")
+    train_want = launches_want(mask_loss_fwd=3 * RANK_STEPS, mask_loss_bwd=3 * RANK_STEPS)
+    n_eval = RANK_PAIRS // n // N_PAIRS
+    eval_want = launches_want(select_maps=n_eval, sinkhorn=n_eval)
+    for x in ranks:
+        if x["train_counts"] != train_want or x["eval_counts"] != eval_want:
+            raise SmokeFailure(f"ranks {what}: rank {x['rank']} launches {x['train_counts']} "
+                               f"in training, {x['eval_counts']} in evaluation; want "
+                               f"{train_want}, {eval_want}")
+        if any(m["skipped_nonfinite"] for m in x["metrics"]):
+            raise SmokeFailure(f"ranks {what}: rank {x['rank']} skipped a step")
+    if n_art != RANK_PAIRS:
+        raise SmokeFailure(f"ranks {what}: continuous.pkl holds {n_art} pairs")
+    return ranks
+
+
+def hold_ranks(torch, a, ranks, what):
+    """Phase 17's checks of a multi-rank launch against A's one rank: its
+    ranks equal to each other (losses, parameters bit for bit, BN
+    statistics, metrics), rank 0 within phase 10's limits of A (every loss
+    of every step, the gradient norm, the parameters), the BN statistics
+    within 5e-5, the evaluation within phase 13's."""
+    lead, others = ranks[0], ranks[1:]
+    bad, worst = {}, 0.0
+    for i in range(RANK_STEPS):
+        ref, got = a["metrics"][i], lead["metrics"][i]
+        if any(x["metrics"][i] != got for x in others):
+            raise SmokeFailure(f"ranks {what}: the ranks logged different losses at step {i}")
+        for key, v in ref.items():
+            if key in ("grad_norm", "skipped_nonfinite"):
+                continue
+            worst = max(worst, abs(got[key] - v) / max(LOSS_ABS, LOSS_REL * abs(v)))
+            if not abs(got[key] - v) <= max(LOSS_ABS, LOSS_REL * abs(v)):
+                bad[f"{key}@{i}"] = (got[key], v)
+    gn_rel = max(abs(lead["metrics"][i]["grad_norm"] - a["metrics"][i]["grad_norm"])
+                 / a["metrics"][i]["grad_norm"] for i in range(RANK_STEPS))
+    param_rel = float((lead["params"] - a["params"]).double().norm()
+                      / a["params"].double().norm())
+    params_equal = all(x["params_digest"] == lead["params_digest"] for x in others)
+    bn_worst = max(float(((got - ref).abs() / (BN_TOL + BN_TOL * ref.abs())).max())
+                   for name in a["bn"] for ref, got in zip(a["bn"][name], lead["bn"][name]))
+    bn_equal = all(torch.equal(y, z) for x in others for name in lead["bn"]
+                   for y, z in zip(x["bn"][name], lead["bn"][name]))
+    ra, rb = a["results"], lead["results"]
+    if list(ra) != list(rb) or any(x["results"] != rb for x in others):
+        raise SmokeFailure(f"ranks {what}: the evaluation's metric keys differ from A's "
+                           f"({sorted(set(ra) ^ set(rb))}) or the ranks disagree")
+    ev_bad, plane_diff = {}, {}
+    for key, v in ra.items():
+        if key in PLANE_ERRORS or key.startswith(("%normal", "%offset")):
+            plane_diff[key] = rb[key] - v  # plane parameter errors: reported, not held
+        elif key in CAMERA_ERRORS:
+            if not abs(rb[key] - v) <= CAM_TOL:
+                ev_bad[key] = (rb[key], v)
+        elif rb[key] != v:  # AP, matching and the camera accuracies
+            ev_bad[key] = (rb[key], v)
+    print(f"[ranks] {what} against A over {RANK_STEPS} steps: {len(bad)} losses outside max(1e-4, "
+          f"1e-3 rel) (worst at {worst:.3f} of it), grad norm rel {gn_rel:.2e}, parameters rel "
+          f"{param_rel:.2e}, BN statistics at {bn_worst:.3f} of 5e-5; on {what}'s ranks the BN "
+          f"statistics {'equal' if bn_equal else 'DIFFERENT'} and the parameters "
+          f"{'bit-equal' if params_equal else 'DIFFERENT'}; evaluation: {len(ra)} metrics, "
+          f"{len(ev_bad)} outside phase 13's limits, plane parameter errors {what} - A "
+          f"{ {k: round(d, 4) for k, d in plane_diff.items()} }")
+    if (bad or gn_rel > 1e-3 or param_rel > 1e-5 or bn_worst > 1 or not bn_equal
+            or not params_equal or ev_bad):
+        raise SmokeFailure(f"ranks: {what} disagrees with A: losses {bad}, evaluation {ev_bad}")
+
+
+def run_ranks(torch, card, nccl_ranks=0):
+    """Phase 17: training and evaluation across ranks through
+    `parallel/dist.py:launch`, A (one rank over NCCL) and B (two ranks over
+    gloo on the one card), B held to A; with `nccl_ranks`, C in B's place:
+    that many ranks over NCCL, one per card."""
+    torch.cuda.empty_cache()
+    a = launch_ranks(torch, card, "A", 1, "nccl")[0]
+    if nccl_ranks:
+        hold_ranks(torch, a, launch_ranks(torch, card, "C", nccl_ranks, "nccl"), "C")
+        return
+    b = launch_ranks(torch, card, "B", 2, "gloo")
+    print(f"[ranks] B's times are two processes sharing one card over host-staged gloo, not a "
+          f"scaling figure; evaluation {b[0]['eval_stats']['pairs_per_sec']} pairs/s")
+    hold_ranks(torch, a, b, "B")
+
+
 def b4_inputs(torch, dev, seed, b, cin, cout, h, w, residual, dtype=None):
     """Post-ReLU activations, a He-initialised 1x1 conv weight, a folded
     FrozenBN affine and a residual, seeded on the host."""
@@ -1713,6 +1977,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--time-tree", default=None, metavar="DIR",
                     help="only time B1 and B2 of the port in DIR (see above)")
+    ap.add_argument("--ranks", type=int, default=0, metavar="N",
+                    help="only phases 1, 2 and 17, with N ranks over NCCL, one per card, "
+                         "in place of the two over gloo (see above)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1740,6 +2007,19 @@ def main(argv=None):
     from nopesac_torch.utils.device import set_f32_parity
     set_f32_parity()
     dev = torch.device("cuda", 0)
+    if args.ranks:
+        try:
+            name, card = phase_device(torch)
+            if torch.cuda.device_count() < args.ranks:
+                raise SmokeFailure(f"--ranks {args.ranks}: {torch.cuda.device_count()} card(s)")
+            phase_build()
+            run_ranks(torch, card, nccl_ranks=args.ranks)
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     try:
         name, card = phase_device(torch)
         phase_build()
@@ -1765,6 +2045,7 @@ def main(argv=None):
         torch.cuda.empty_cache()
         check_bf16_train_reference(torch, dev)
         run_trainer(torch, dev, card, step_ms)
+        run_ranks(torch, card)
         kernels.append(b4)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

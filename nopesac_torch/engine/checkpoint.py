@@ -21,7 +21,8 @@ holding the newest file's name. (The JAX package writes orbax directories
 under `OUTPUT_DIR/checkpoints/` instead.) Each file is one `torch.save` dict
 `{"model": state_dict, "optimizer": AdamW state_dict, "iteration": N,
 "trainer": {"step", "updates", "generator"}}`, the last three from
-`engine/train.py:TrainStep.state_dict`.
+`engine/train.py:TrainStep.state_dict`. Across ranks, rank 0 writes and
+every rank waits for it; every rank restores the same file.
 """
 from __future__ import annotations
 
@@ -30,6 +31,8 @@ import os
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
+
+from ..parallel.dist import barrier, is_main_process
 
 logger = logging.getLogger(__name__)
 
@@ -105,18 +108,22 @@ class Checkpointer:
              name: Optional[str] = None) -> str:
         """Write `name`.pth (default model_{iteration:07d}) and point the
         marker at it. `train_step` (an `engine/train.py:TrainStep`, or None
-        for weights only) adds the optimizer and the trainer state."""
+        for weights only) adds the optimizer and the trainer state. Every
+        rank calls it (the trainer state gathers each rank's generator);
+        only rank 0 writes, and every rank returns once the file is there."""
         name = (name or f"model_{iteration:07d}") + ".pth"
-        blob = {"model": model.state_dict(), "iteration": int(iteration)}
-        if train_step is not None:
-            trainer = train_step.state_dict()
-            blob["optimizer"] = trainer.pop("optimizer")
-            blob["trainer"] = trainer
         path = os.path.join(self.dir, name)
-        torch.save(blob, path + ".tmp")
-        os.replace(path + ".tmp", path)
-        with open(os.path.join(self.dir, MARKER), "w") as f:
-            f.write(name)
+        trainer = train_step.state_dict() if train_step is not None else None
+        if is_main_process():
+            blob = {"model": model.state_dict(), "iteration": int(iteration)}
+            if trainer is not None:
+                blob["optimizer"] = trainer.pop("optimizer")
+                blob["trainer"] = trainer
+            torch.save(blob, path + ".tmp")
+            os.replace(path + ".tmp", path)
+            with open(os.path.join(self.dir, MARKER), "w") as f:
+                f.write(name)
+        barrier()
         return path
 
     def latest(self) -> Optional[str]:

@@ -13,6 +13,12 @@ The port's `models/layers.py:BatchNorm2d` already has Flax's semantics
 needed to recover a batch's statistics: with every momentum set to 0 for
 the pass, each forward leaves exactly the batch's statistics in the running
 buffers.
+
+Across ranks the statistics of each forward are the global batch's
+(`models/layers.py:BatchNorm2d`), so every rank must run the same number
+of forwards: a rank goes on only while every rank has a batch, and keeps
+the new statistics only where they are finite on every rank (all-reduces
+of MIN).
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import torch
 from ..data.packing import batch_to_device
 from ..models.layers import BatchNorm2d
 from ..models.nopesac import PlaneTRNopeSAC
+from ..parallel.dist import all_true
 
 logger = logging.getLogger(__name__)
 
@@ -51,8 +58,10 @@ def recompute_batch_stats(model: PlaneTRNopeSAC, batches: Iterable[Dict], num_it
         for m in layers:
             m.momentum = 0.0
         with torch.no_grad():
-            for batch in batches:
-                if n >= num_iter:
+            it = iter(batches)
+            while n < num_iter:
+                batch = next(it, None)
+                if not all_true(batch is not None, dev):
                     break
                 images = [batch[k] if isinstance(batch[k], torch.Tensor)
                           else batch_to_device({k: batch[k]}, dev)[k] for k in ("image0", "image1")]
@@ -61,8 +70,8 @@ def recompute_batch_stats(model: PlaneTRNopeSAC, batches: Iterable[Dict], num_it
                     s_mean += m.running_mean
                     s_var += m.running_var
                 n += 1
-            finite = all(bool(torch.isfinite(s_mean).all() & torch.isfinite(s_var).all())
-                         for s_mean, s_var in sums)
+            finite = all_true(all(bool(torch.isfinite(s_mean).all() & torch.isfinite(s_var).all())
+                                  for s_mean, s_var in sums), dev)
             if n and not finite:
                 logger.warning("precise-BN: non-finite statistics; keeping the old running "
                                "statistics")

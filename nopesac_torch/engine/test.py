@@ -3,7 +3,8 @@ postprocess, MP3DEvaluator and its artifacts (counterpart of the JAX
 package's `Trainer.test` and `test_NopeSAC.py`).
 
     python -m nopesac_torch.engine.test --config-file configs/smoke_synthetic.yaml \
-        --eval-only [--device cpu] [--seed 0] TEST.EVAL_FULL_SCENE True
+        --eval-only [--device cpu] [--seed 0] [--num-gpus N] [--num-machines M \
+        --machine-rank R --dist-url tcp://host:port] TEST.EVAL_FULL_SCENE True
 
 The CLI takes `test_NopeSAC.py`'s flags. It evaluates cfg.DATASETS.TEST[0] on
 `cuda` unless `--device cpu` is given, logs the metrics and prints them as
@@ -14,8 +15,10 @@ state_dict, or `{"model": state_dict}`), loaded strictly by
 `engine/checkpoint.py:load_weights`; without one the model gets seeded random
 weights (`--seed`). With `--resume` the latest training checkpoint in
 OUTPUT_DIR (`last_checkpoint`) takes MODEL.WEIGHTS' place when there is one.
-Evaluation across processes and the GT-matcher / SP-top-camera ablations are
-not ported.
+With N ranks on each of M machines (`parallel/dist.py:launch`, N 1 by
+default, at most the visible cards) each rank evaluates its strided slice
+of the split and rank 0 gathers the predictions, writes the artifacts and
+prints the line. The GT-matcher / SP-top-camera ablations are not ported.
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ from ..data.registry import DatasetCatalog
 from ..evaluation.evaluator import MP3DEvaluator
 from ..evaluation.postprocess import postprocess_batch
 from ..models.nopesac import PlaneTRNopeSAC
-from ..utils.device import DeviceLike
+from ..parallel.dist import barrier, is_main_process, launch, rank, world_size
+from ..utils.device import DeviceLike, resolve_device
 from .checkpoint import Checkpointer, load_weights
 from .predict import build_model_from_cfg, make_eval_step
 
@@ -85,7 +89,11 @@ class EvalRunner:
         self.last_eval_stats: Dict = {}
 
     def test(self, dataset_list: Optional[List[dict]] = None) -> "OrderedDict":
-        """Evaluate over `dataset_list` (default: cfg.DATASETS.TEST[0])."""
+        """Evaluate over `dataset_list` (default: cfg.DATASETS.TEST[0]).
+        Across ranks each rank runs the pairs dataset_list[rank::world] and
+        the evaluator gathers them; every rank returns the metrics of all
+        pairs, and `last_eval_stats` counts all pairs over rank 0's wall up
+        to the moment every rank is done."""
         cfg = self.cfg
         if cfg.TEST.POSE_REFINEMENT_WITH_GT_MATCHERS:
             raise NotImplementedError("TEST.POSE_REFINEMENT_WITH_GT_MATCHERS is not ported")
@@ -94,12 +102,15 @@ class EvalRunner:
         test_name = cfg.DATASETS.TEST[0]
         if dataset_list is None:
             dataset_list = DatasetCatalog.get(test_name)
+        world = world_size()
+        n_pairs = len(dataset_list)
         h, w = cfg.INPUT.IMAGE_SIZE
         mapper = PairMapper(cfg.MODEL.SEM_SEG_HEAD.NUM_OBJECT_QUERIES, (h, w),
                             cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD, is_train=False,
                             eval_gt_box=bool(cfg.TEST.EVAL_GT_BOX),
                             root_dir=cfg.DATASETS.ROOT_DIR)
-        evaluator = MP3DEvaluator(test_name, cfg, dataset_list=dataset_list)
+        evaluator = MP3DEvaluator(test_name, cfg, dataset_list=dataset_list, distributed=world > 1)
+        dataset_list = dataset_list[rank()::world]
         eval_step = make_eval_step(self.model, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
         dev = next(self.model.parameters()).device
         bs = int(cfg.TEST.IMS_PER_BATCH)
@@ -136,9 +147,10 @@ class EvalRunner:
             pending = (chunk, [s["meta"] for s in samples[:n_real]], out, done)
         if pending is not None:
             drain(pending)
+        barrier()
         secs = time.perf_counter() - t0
-        self.last_eval_stats = {"pairs": len(dataset_list), "seconds": round(secs, 3),
-                                "pairs_per_sec": round(len(dataset_list) / max(secs, 1e-9), 2)}
+        self.last_eval_stats = {"pairs": n_pairs, "seconds": round(secs, 3),
+                                "pairs_per_sec": round(n_pairs / max(secs, 1e-9), 2)}
         return evaluator.evaluate()
 
 
@@ -158,29 +170,32 @@ def default_argument_parser() -> argparse.ArgumentParser:
     return p
 
 
-def setup(args) -> CfgNode:
+def load_cfg(args) -> CfgNode:
+    """The config of --config-file with the KEY VALUE overrides, frozen."""
     cfg = get_cfg()
     if args.config_file:
         cfg.merge_from_file(args.config_file)
     if args.opts:
         cfg.merge_from_list(args.opts)
     cfg.freeze()
-    os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
-    logging.basicConfig(level=logging.INFO, format="[%(asctime)s %(name)s] %(message)s",
-                        handlers=[logging.StreamHandler(),
-                                  logging.FileHandler(os.path.join(cfg.OUTPUT_DIR, "log.txt"))])
     return cfg
 
 
-def main(argv: Optional[List[str]] = None) -> int:
-    args = default_argument_parser().parse_args(argv)
-    cfg = setup(args)
-    if args.num_machines > 1:
-        raise NotImplementedError("evaluation across machines is not ported")
-    if args.num_gpus is not None and args.device != "cpu" and \
-            args.num_gpus > torch.cuda.device_count():
-        raise ValueError(f"--num-gpus {args.num_gpus} requested but only "
-                         f"{torch.cuda.device_count()} device(s) visible")
+def setup_logging(cfg: CfgNode) -> None:
+    """INFO to stderr and OUTPUT_DIR/log.txt on rank 0; warnings to stderr
+    on the other ranks."""
+    os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+    handlers: List[logging.Handler] = [logging.StreamHandler()]
+    if is_main_process():
+        handlers.append(logging.FileHandler(os.path.join(cfg.OUTPUT_DIR, "log.txt")))
+    logging.basicConfig(level=logging.INFO if is_main_process() else logging.WARNING,
+                        format="[%(asctime)s %(name)s] %(message)s", handlers=handlers)
+
+
+def run(args) -> int:
+    """The body of one rank (or of the only process)."""
+    cfg = load_cfg(args)
+    setup_logging(cfg)
     if cfg.FIX_SEED:
         random.seed(cfg.SEED)
         np.random.seed(cfg.SEED)
@@ -193,11 +208,25 @@ def main(argv: Optional[List[str]] = None) -> int:
     tester = EvalRunner(cfg, build_eval_model(cfg, device=args.device, seed=args.seed,
                                               weights=latest))
     results = tester.test()
-    for k, v in results.items():
-        logger.info("%s: %s", k, v)
-    print(json.dumps({"results": {k: float(v) for k, v in results.items()},
-                      "eval_stats": tester.last_eval_stats,
-                      "device": str(next(tester.model.parameters()).device)}))
+    if is_main_process():
+        for k, v in results.items():
+            logger.info("%s: %s", k, v)
+        print(json.dumps({"results": {k: float(v) for k, v in results.items()},
+                          "eval_stats": tester.last_eval_stats,
+                          "device": str(next(tester.model.parameters()).device),
+                          "world_size": world_size()}), flush=True)
+    return 0
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = default_argument_parser().parse_args(argv)
+    device = resolve_device(args.device)
+    num_gpus = 1 if args.num_gpus is None else args.num_gpus
+    visible = torch.cuda.device_count() if device.type == "cuda" else None
+    if num_gpus < 1 or (visible is not None and num_gpus > visible):
+        raise ValueError(f"--num-gpus {num_gpus} requested but {visible} device(s) visible")
+    launch(run, num_gpus, args.num_machines, args.machine_rank, args.dist_url,
+           device=device.type, args=(args,))
     return 0
 
 

@@ -22,6 +22,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config.config import CfgNode, get_cfg
 from ..data.mapper import PairMapper, collate
@@ -29,6 +30,8 @@ from ..data.packing import batch_to_device
 from ..data.synthetic import make_pair
 from ..models.layers import BatchNorm2d
 from ..models.nopesac import PlaneTRNopeSAC
+from ..parallel.dist import all_reduce_sum, rank, world_size
+from ..parallel.host_gather import all_gather_objects
 from ..utils.device import DeviceLike, resolve_device
 from .optimizer import apply_freeze, build_optimizer, clip_by_global_norm_, make_lr_schedule, set_lr
 from .predict import build_model_from_cfg
@@ -50,8 +53,19 @@ class TrainStep:
     When the total loss or the gradient norm is not finite the step leaves
     the parameters and the optimizer state as they were and puts back the BN
     running statistics, which the forward pass has already updated; the
-    learning-rate schedule does not advance. `gen` (seeded, on the model's
-    device) draws the dropout masks and the AIM random poses of every step.
+    learning-rate schedule does not advance. `gen` (seeded with seed + rank,
+    on the model's device) draws the dropout masks and the AIM random poses
+    of every step.
+
+    Across ranks (a process group of more than one) each rank backpropagates
+    its share of the global batch's loss (`models/nopesac.py:train_forward`),
+    and the gradients are summed over the ranks (`reduce_gradients`), so the
+    gradient norm, the clipping and the AdamW step see the gradient of the
+    global loss, the same on every rank. The logged losses and the skip
+    guard's total are the global ones, the shares summed over the ranks.
+    The random streams differ from rank to rank, as in the reference's
+    per-rank seeding; the JAX step's one global key has no per-rank
+    counterpart.
     """
 
     def __init__(self, model: PlaneTRNopeSAC, cfg: CfgNode, seed: int = 0):
@@ -66,7 +80,7 @@ class TrainStep:
         self.clip_value = (clip.CLIP_VALUE if clip.ENABLED and clip.CLIP_TYPE == "full_model"
                            else None)
         dev = next(model.parameters()).device
-        self.gen = torch.Generator(device=dev).manual_seed(seed)
+        self.gen = torch.Generator(device=dev).manual_seed(seed + rank())
         self.bn_buffers = [buf for m in model.modules() if isinstance(m, BatchNorm2d)
                            for buf in (m.running_mean, m.running_var)]
         self.step = 0     # calls, skipped or not
@@ -76,21 +90,26 @@ class TrainStep:
         """What a resume needs besides the model: the AdamW state, the two
         counts and the generator's state. The generator runs on across
         steps (the JAX step folds the step into a fixed key instead), so a
-        resume repeats the uninterrupted run's draws only with it."""
-        return {"optimizer": self.optimizer.state_dict(), "step": self.step,
-                "updates": self.updates, "generator": self.gen.get_state()}
+        resume repeats the uninterrupted run's draws only with it. Across
+        ranks every rank calls it: "rank_generators" gathers each rank's
+        state, and a resume on as many ranks gives each its own back."""
+        state = {"optimizer": self.optimizer.state_dict(), "step": self.step,
+                 "updates": self.updates, "generator": self.gen.get_state()}
+        if world_size() > 1:
+            state["rank_generators"] = all_gather_objects(self.gen.get_state())
+        return state
 
     def load_state_dict(self, state: Dict) -> None:
         self.optimizer.load_state_dict(state["optimizer"])
         self.step, self.updates = int(state["step"]), int(state["updates"])
-        self.gen.set_state(state["generator"])
+        gens = state.get("rank_generators")
+        self.gen.set_state(gens[rank()] if gens is not None and len(gens) == world_size()
+                           else state["generator"])
 
     def __call__(self, batch: Dict, aim_rot=None, aim_trans=None) -> Dict[str, torch.Tensor]:
         self.optimizer.zero_grad(set_to_none=True)
         saved_bn = [buf.clone() for buf in self.bn_buffers]
-        losses = self.model.train_forward(batch, self.gen, aim_rot, aim_trans)
-        total = torch.stack([v.to(torch.float32) for v in losses.values()]).sum()
-        total.backward()
+        losses, total = self.forward_backward(batch, aim_rot, aim_trans)
         grad_norm, ok = self.apply_gradients(finite_total=torch.isfinite(total))
         if not ok:
             with torch.no_grad():
@@ -102,6 +121,19 @@ class TrainStep:
         metrics["grad_norm"] = grad_norm.detach()
         metrics["skipped_nonfinite"] = torch.tensor(0.0 if ok else 1.0)
         return metrics
+
+    def forward_backward(self, batch: Dict, aim_rot=None, aim_trans=None
+                         ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """train_forward and its backward, the gradients summed over the
+        ranks into the parameters' .grad: (the global losses, their f32
+        total). A non-finite share on any rank makes the global total
+        non-finite on every rank."""
+        losses = self.model.train_forward(batch, self.gen, aim_rot, aim_trans)
+        total = torch.stack([v.to(torch.float32) for v in losses.values()]).sum()
+        total.backward()
+        reduce_gradients(self.params)
+        *global_losses, total = all_reduce_sum(list(losses.values()) + [total])
+        return dict(zip(losses, global_losses)), total
 
     def apply_gradients(self, finite_total=True) -> Tuple[torch.Tensor, bool]:
         """The update from the parameters' .grad (None counts as zeros):
@@ -120,6 +152,29 @@ class TrainStep:
         self.optimizer.step()
         self.updates += 1
         return grad_norm, True
+
+
+def reduce_gradients(params: List[torch.Tensor]) -> int:
+    """Sum the gradients of `params` over the ranks: one all-reduce of a
+    flat buffer per dtype, each .grad then a view of it. A parameter without
+    a gradient enters as zeros, so every rank reduces the same buffer.
+    Returns the bytes reduced; at world size 1 nothing is called and 0."""
+    if world_size() == 1:
+        return 0
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for p in params:
+        by_dtype.setdefault(p.dtype, []).append(p)
+    n_bytes = 0
+    for group in by_dtype.values():
+        flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                          for p in group])
+        dist.all_reduce(flat)
+        k = 0
+        for p in group:
+            p.grad = flat[k:k + p.numel()].view_as(p)
+            k += p.numel()
+        n_bytes += flat.numel() * flat.element_size()
+    return n_bytes
 
 
 def synthetic_batches(cfg: CfgNode, n_batches: int, seed: int, n_planes: int = 6,

@@ -2,11 +2,20 @@
 `engine/trainer.py:Trainer` and of `train_NopeSAC.py`).
 
     python -m nopesac_torch.engine.trainer --config-file configs/smoke_synthetic.yaml \
-        [--resume] [--eval-only] [--num-gpus 1] [--device cpu] [KEY VALUE ...]
+        [--resume] [--eval-only] [--num-gpus N] [--num-machines M --machine-rank R \
+        --dist-url tcp://host:port] [--device cpu] [KEY VALUE ...]
 
-The CLI takes `train_NopeSAC.py`'s flags (`--num-machines` above 1 raises:
-training across processes is not ported) and trains on `cuda` unless
-`--device cpu` is given. `Trainer` dumps the config to OUTPUT_DIR/config.yaml,
+The CLI takes `train_NopeSAC.py`'s flags and trains on `cuda` unless
+`--device cpu` is given. It runs N ranks on each of M machines
+(`parallel/dist.py:launch`): N defaults to the greatest common divisor of
+SOLVER.IMS_PER_BATCH and the visible cards (1 on the CPU), may not exceed
+them, and N x M must divide SOLVER.IMS_PER_BATCH, as in the JAX package's
+`Trainer` (`--eval-only` skips that check). Each rank loads its strided
+shard of the training split, IMS_PER_BATCH / (N x M) pairs per step; the
+ranks together compute the JAX package's global step (`engine/train.py`).
+Rank 0 alone writes config.yaml, metrics.json, the TensorBoard events, the
+log rows and the checkpoints; a `--resume` raises unless every rank sees the
+same latest checkpoint. `Trainer` dumps the config to OUTPUT_DIR/config.yaml,
 builds the model with seeded weights (SEED), overlays MODEL.WEIGHTS on it
 (`engine/checkpoint.py:load_weights`: curriculum step N's model_final.pth
 feeds step N+1, whose new submodules keep their init), freezes MODEL.FREEZE
@@ -21,7 +30,8 @@ stream of DATASETS.TRAIN[0]. The loop follows the JAX `Trainer.train`:
     (OUTPUT_DIR/model_{iter:07d}.pth, with the optimizer and trainer state);
   * every TEST.EVAL_PERIOD steps, precise-BN (TEST.PRECISE_BN) and then
     `test()`, an `engine/test.py:EvalRunner` over DATASETS.TEST[0] on the
-    same module in eval mode, whose metrics go to metrics.json as
+    same module in eval mode (on every rank, each over its slice of the
+    split), whose metrics go to metrics.json as
     {"iteration", "eval"} and to TensorBoard under eval/. An exception in
     the hook is logged and training goes on; `last_eval_error` keeps it;
   * at the end, precise-BN with the last periodic checkpoint rewritten, and
@@ -37,6 +47,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import math
 import os
 import random
 import time
@@ -45,17 +56,19 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..config.config import CfgNode, get_cfg
+from ..config.config import CfgNode
 from ..data import datasets
 from ..data.loader import PairLoader
 from ..data.mapper import PairMapper
 from ..data.packing import batch_to_device
 from ..data.registry import DatasetCatalog
+from ..parallel.dist import broadcast_module, is_main_process, launch, rank, world_size
+from ..parallel.host_gather import all_gather_objects
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.tb_writer import TBScalarWriter
 from .checkpoint import Checkpointer, load_weights
 from .precise_bn import recompute_batch_stats
-from .test import EvalRunner
+from .test import EvalRunner, load_cfg, setup_logging
 from .train import TrainStep, build_train_model
 
 logger = logging.getLogger(__name__)
@@ -81,25 +94,45 @@ def dataset_kind(name: str) -> str:
     return "scannet" if "scannet" in name else "mp3d"
 
 
+def resolve_num_gpus(cfg: CfgNode, num_gpus: Optional[int], num_machines: int,
+                     device_type: str, training: bool = True) -> int:
+    """The ranks per machine of `--num-gpus`, checked as the JAX package's
+    `Trainer` checks it: no more than the visible cards; by default the greatest common divisor of
+    SOLVER.IMS_PER_BATCH and the visible cards (1 on the CPU); in training,
+    the ranks of all machines must divide SOLVER.IMS_PER_BATCH."""
+    bs = int(cfg.SOLVER.IMS_PER_BATCH)
+    visible = torch.cuda.device_count() if device_type == "cuda" else None
+    if num_gpus is None:
+        num_gpus = math.gcd(bs, visible) if visible else 1
+        if visible and num_gpus != visible:
+            logger.warning("using %d of %d devices (batch %d not divisible)", num_gpus, visible,
+                           bs)
+    elif num_gpus < 1:
+        raise ValueError(f"--num-gpus must be at least 1, got {num_gpus}")
+    elif visible is not None and num_gpus > visible:
+        raise ValueError(f"--num-gpus {num_gpus} requested but only {visible} device(s) visible")
+    world = num_gpus * num_machines
+    if training and bs % world != 0:
+        raise ValueError(f"SOLVER.IMS_PER_BATCH={bs} does not divide by the {world} ranks "
+                         f"(--num-gpus {num_gpus} x --num-machines {num_machines})")
+    return num_gpus
+
+
 class Trainer:
-    """Training of one model on one device, as the JAX `Trainer` does it."""
+    """Training of one model, as the JAX `Trainer` does it: on one device,
+    or as one rank of a process group (`parallel/dist.py`), whose ranks
+    together take the JAX package's global step."""
 
     def __init__(self, cfg: CfgNode, dataset_list: Optional[List[dict]] = None,
-                 device: DeviceLike = None, num_devices: Optional[int] = None):
+                 device: DeviceLike = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        if num_devices is not None:
-            visible = torch.cuda.device_count() if self.device.type == "cuda" else 1
-            if num_devices > visible:
-                raise ValueError(f"--num-gpus {num_devices} requested but only {visible} "
-                                 f"device(s) visible")
-            if num_devices > 1:
-                raise NotImplementedError("training across devices is not ported (one device)")
         if cfg.MODEL.CAMERA_HEAD.CLASSIFICATION_ON:
             raise NotImplementedError("MODEL.CAMERA_HEAD.CLASSIFICATION_ON is not ported")
         os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
-        with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
-            f.write(cfg.dump())
+        if is_main_process():
+            with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
+                f.write(cfg.dump())
         self.checkpointer = Checkpointer(cfg.OUTPUT_DIR)
         self._train_dataset = dataset_list
         self._loader: Optional[PairLoader] = None
@@ -112,20 +145,27 @@ class Trainer:
         self.weights_report = None
         if cfg.MODEL.WEIGHTS:
             self.weights_report = load_weights(self.model, cfg.MODEL.WEIGHTS, strict=False)
+        broadcast_module(self.model)  # every rank starts from rank 0's weights
         # a fresh optimizer per curriculum step: MODEL.WEIGHTS brings weights only
         self.train_step = TrainStep(self.model, cfg, seed=cfg.SEED)
 
     def _build_train_loader(self) -> PairLoader:
+        """This rank's loader: every world-th pair of the split from its rank
+        on, SOLVER.IMS_PER_BATCH / world pairs per batch."""
         cfg = self.cfg
+        world = world_size()
+        if cfg.SOLVER.IMS_PER_BATCH % world != 0:
+            raise ValueError(f"SOLVER.IMS_PER_BATCH={cfg.SOLVER.IMS_PER_BATCH} does not divide "
+                             f"by the {world} ranks")
         name = cfg.DATASETS.TRAIN[0]
         mapper = PairMapper(cfg.MODEL.SEM_SEG_HEAD.NUM_OBJECT_QUERIES, tuple(cfg.INPUT.IMAGE_SIZE),
                             cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD, is_train=True,
                             root_dir=cfg.DATASETS.ROOT_DIR, dataset_kind=dataset_kind(name),
                             augmentation=cfg.DATALOADER.AUGMENTATION, seed=cfg.SEED)
         return PairLoader(self._train_dataset or DatasetCatalog.get(name), mapper,
-                          batch_size=cfg.SOLVER.IMS_PER_BATCH, shuffle=True, drop_last=True,
-                          seed=cfg.SEED, infinite=True,
-                          num_workers=int(cfg.DATALOADER.NUM_WORKERS))
+                          batch_size=cfg.SOLVER.IMS_PER_BATCH // world, shuffle=True,
+                          drop_last=True, seed=cfg.SEED, num_shards=world, shard_id=rank(),
+                          infinite=True, num_workers=int(cfg.DATALOADER.NUM_WORKERS))
 
     @property
     def loader(self) -> PairLoader:
@@ -135,9 +175,16 @@ class Trainer:
 
     def resume_or_load(self, resume: bool = False) -> None:
         """With `resume`, restore the latest checkpoint of OUTPUT_DIR; the
-        MODEL.WEIGHTS overlay already happened at construction."""
+        MODEL.WEIGHTS overlay already happened at construction. Across ranks
+        every rank must see the same latest checkpoint (OUTPUT_DIR on a
+        filesystem that every machine shares), or it raises."""
         if not resume:
             return
+        latest = self.checkpointer.latest()
+        tags = all_gather_objects(latest and os.path.basename(latest))
+        if len(set(tags)) != 1:
+            raise RuntimeError(f"--resume: the ranks disagree on the latest checkpoint (per rank: "
+                               f"{tags}); OUTPUT_DIR must be a filesystem every rank sees")
         iteration = self.checkpointer.restore(self.model, self.train_step)
         if iteration is None:
             logger.info("--resume: no checkpoint found, starting fresh")
@@ -163,9 +210,11 @@ class Trainer:
         cfg = self.cfg
         max_iter = max_iter or cfg.SOLVER.MAX_ITER
         metrics_path = os.path.join(cfg.OUTPUT_DIR, "metrics.json")
-        tb = TBScalarWriter(cfg.OUTPUT_DIR) if cfg.get("TENSORBOARD_ON", True) else None
+        main = is_main_process()
+        tb = (TBScalarWriter(cfg.OUTPUT_DIR) if main and cfg.get("TENSORBOARD_ON", True)
+              else None)
         start = self.train_step.step
-        if start == 0:
+        if start == 0 and main:
             open(metrics_path, "w").close()
         self.loop_times = {}
         self.model.train()
@@ -175,7 +224,7 @@ class Trainer:
         for step in range(start, max_iter):
             batch = self._timed("loader_wait_s", lambda: next(it), sync=False)
             metrics = self.train_step(batch_to_device(batch, self.device))
-            if step % LOG_PERIOD == 0 or step == max_iter - 1:
+            if main and (step % LOG_PERIOD == 0 or step == max_iter - 1):
                 m = {k: float(v) for k, v in metrics.items()}
                 m["iteration"] = step
                 now = time.time()
@@ -207,7 +256,7 @@ class Trainer:
             if self.cfg.TEST.PRECISE_BN.ENABLED:
                 self._precise_bn()
             res = self._timed("eval_s", self.test)
-            if res:
+            if res and is_main_process():
                 row = {"iteration": step, "eval": flatten_metrics(res)}
                 with open(metrics_path, "a") as f:
                     f.write(json.dumps(row) + "\n")
@@ -267,16 +316,8 @@ def default_argument_parser() -> argparse.ArgumentParser:
 
 
 def setup(args) -> CfgNode:
-    cfg = get_cfg()
-    if args.config_file:
-        cfg.merge_from_file(args.config_file)
-    if args.opts:
-        cfg.merge_from_list(args.opts)
-    cfg.freeze()
-    os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
-    logging.basicConfig(level=logging.INFO, format="[%(asctime)s %(name)s] %(message)s",
-                        handlers=[logging.StreamHandler(),
-                                  logging.FileHandler(os.path.join(cfg.OUTPUT_DIR, "log.txt"))])
+    cfg = load_cfg(args)
+    setup_logging(cfg)
     if cfg.FIX_SEED:
         random.seed(cfg.SEED)
         np.random.seed(cfg.SEED)
@@ -287,24 +328,33 @@ def setup(args) -> CfgNode:
     return cfg
 
 
-def main(argv: Optional[List[str]] = None) -> int:
-    args = default_argument_parser().parse_args(argv)
-    if args.num_machines > 1:
-        raise NotImplementedError("training across machines is not ported")
+def run(args) -> int:
+    """The body of one rank (or of the only process)."""
     cfg = setup(args)
-    trainer = Trainer(cfg, device=args.device, num_devices=args.num_gpus)
+    trainer = Trainer(cfg, device=args.device)
     try:
         trainer.resume_or_load(resume=args.resume)
         if args.eval_only:
             results = trainer.test()
-            print(json.dumps({"results": flatten_metrics(results),
-                              "eval_stats": trainer.last_eval_stats}))
-            return 0
-        trainer.train()
+            row = {"results": flatten_metrics(results), "eval_stats": trainer.last_eval_stats}
+        else:
+            trainer.train()
+            row = {"iteration": trainer.train_step.step, "output_dir": cfg.OUTPUT_DIR,
+                   "device": str(trainer.device), "world_size": world_size()}
     finally:
         trainer.close()
-    print(json.dumps({"iteration": trainer.train_step.step, "output_dir": cfg.OUTPUT_DIR,
-                      "device": str(trainer.device)}))
+    if is_main_process():
+        print(json.dumps(row), flush=True)
+    return 0
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = default_argument_parser().parse_args(argv)
+    device = resolve_device(args.device)
+    num_gpus = resolve_num_gpus(load_cfg(args), args.num_gpus, args.num_machines, device.type,
+                                training=not args.eval_only)
+    launch(run, num_gpus, args.num_machines, args.machine_rank, args.dist_url,
+           device=device.type, args=(args,))
     return 0
 
 

@@ -6,7 +6,11 @@ host-side numpy with the port's RLE codec. It keeps
     artifacts that eval.py reads (mp3d_evaluation.py:331-342),
   * the metric names and thresholds (camera acc@{1.0,0.5,0.2}m/{30,15,10}deg,
     mask AP, plane AP variants, matching precision/recall/F).
-Evaluation gathered across processes (`distributed=True`) is not ported.
+With `distributed=True` each rank processes its own slice of the pairs and
+`evaluate()` gathers the predictions to rank 0 in rank-major order (rank 0's
+pairs, then rank 1's, ...). Rank 0 writes the artifacts and computes the
+metrics against the GT of `dataset_list`, which is the whole split on every
+rank; one more gather shares its result dict, or its error, with every rank.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch
 
 from ..core.metrics import compare_planes, compute_ap, rotation_angle_error_deg
 from ..data.registry import DatasetCatalog, MetadataCatalog
+from ..parallel.host_gather import all_gather_objects, is_main_process
 from ..utils import rle as rle_util
 from .coco_json import write_siamese_coco_json
 
@@ -39,9 +44,8 @@ def _gt_rle(ann: dict, height: int, width: int):
 class MP3DEvaluator:
     def __init__(self, dataset_name: str, cfg, distributed: bool = False,
                  output_dir: Optional[str] = None, dataset_list: Optional[List[dict]] = None):
-        if distributed:
-            raise NotImplementedError("evaluation gathered across processes is not ported")
         self.cfg = cfg
+        self._distributed = distributed
         self.dataset_name = dataset_name
         self._output_dir = output_dir or cfg.OUTPUT_DIR
         self.eval_full_scene = cfg.TEST.EVAL_FULL_SCENE
@@ -154,8 +158,24 @@ class MP3DEvaluator:
 
     def evaluate(self) -> "OrderedDict":
         """Write the artifacts (TEST.EVAL_FULL_SCENE) and compute the metrics
-        over every prediction processed."""
-        return self._evaluate_main(self._predictions)
+        over every prediction processed, on every rank's when distributed.
+        Every rank returns rank 0's results; an error on rank 0 raises on
+        every rank."""
+        if not self._distributed:
+            return self._evaluate_main(self._predictions)
+        per_rank = all_gather_objects(self._predictions)
+        shared = None
+        if is_main_process():
+            try:
+                shared = (self._evaluate_main([p for preds in per_rank for p in preds]), None)
+            except Exception as e:  # every rank must reach the second gather
+                logger.exception("evaluation on rank 0 failed")
+                shared = (None, repr(e))
+        results, error = all_gather_objects(shared)[0]
+        if error is not None:
+            raise RuntimeError(f"evaluation on rank 0 failed: {error}")
+        self._results = results
+        return results
 
     def _evaluate_main(self, predictions) -> "OrderedDict":
         if not predictions:

@@ -1,6 +1,7 @@
 """Camera pose losses, the AIM auto-encoder losses with their random poses,
 and the NOPE-SAC refinement losses (counterpart of the JAX package's
-`losses/camera_losses.py`)."""
+`losses/camera_losses.py`). Their means over the batch are `share_mean`s:
+across ranks, this rank's share of the global batch's mean."""
 from __future__ import annotations
 
 from typing import Dict
@@ -8,14 +9,15 @@ from typing import Dict
 import torch
 
 from ..core.geometry import canonicalize_quat_sign, normalize, quat_from_rotvec, safe_norm
+from ..parallel.dist import share_mean
 
 
 def camera_pose_loss(est_tran, est_rot, gt_pose):
     """(mean |dt|, mean |normalize(q) - normalize(q_gt)|). The estimate's
     normalisation uses eps 1e-3, as the JAX package's, which bounds its
     gradient where a raw regressor output sits near zero."""
-    l_x = safe_norm(gt_pose[:, 0:3] - est_tran, dim=1).mean()
-    l_q = safe_norm(normalize(gt_pose[:, 3:]) - normalize(est_rot, eps=1e-3), dim=1).mean()
+    l_x = share_mean(safe_norm(gt_pose[:, 0:3] - est_tran, dim=1))
+    l_q = share_mean(safe_norm(normalize(gt_pose[:, 3:]) - normalize(est_rot, eps=1e-3), dim=1))
     return l_x, l_q
 
 
@@ -43,12 +45,12 @@ def trans_from_uniform(u: torch.Tensor) -> torch.Tensor:
 
 def rot_rec_loss(input_rot, pred_rot):
     """AIM rotation reconstruction."""
-    return safe_norm(normalize(input_rot) - pred_rot, dim=1).mean()
+    return share_mean(safe_norm(normalize(input_rot) - pred_rot, dim=1))
 
 
 def trans_rec_loss(input_trans, pred_trans):
     """AIM translation reconstruction."""
-    return safe_norm(input_trans - pred_trans, dim=1).mean()
+    return share_mean(safe_norm(input_trans - pred_trans, dim=1))
 
 
 def refine_losses(ref: Dict, gt_pose, seq_valid, num_matches, suffix: str,
@@ -70,17 +72,17 @@ def refine_losses(ref: Dict, gt_pose, seq_valid, num_matches, suffix: str,
     rot_err = safe_norm(normalize(gt_pose[:, None, 3:]) - normalize(ref["rots_all"]), dim=-1)
     best_rot = torch.argmin(torch.where(hyp_valid, rot_err, big).detach(), dim=-1)
     score_at = torch.gather(ref["score_rot"], 1, best_rot[:, None])[:, 0]
-    losses[f"loss_rotIdx_{suffix}"] = torch.abs(1.0 - score_at).mean() * 0.01 * weight
+    losses[f"loss_rotIdx_{suffix}"] = share_mean(torch.abs(1.0 - score_at)) * 0.01 * weight
 
     trans_err = safe_norm(gt_pose[:, None, :3] - ref["trans_all"], dim=-1)
     best_tr = torch.argmin(torch.where(hyp_valid, trans_err, big).detach(), dim=-1)
     score_at_t = torch.gather(ref["score_trans"], 1, best_tr[:, None])[:, 0]
-    losses[f"loss_transIdx_{suffix}"] = torch.abs(1.0 - score_at_t).mean() * 0.02 * weight
+    losses[f"loss_transIdx_{suffix}"] = share_mean(torch.abs(1.0 - score_at_t)) * 0.02 * weight
 
     # l2 of hypothesis i against match i, over the matched pairs
     l2 = ref["l2_dist"]  # [B, M+1, M]
     diag = torch.diagonal(l2[:, 1:, :], dim1=1, dim2=2)  # [B, M]
     per_img = (diag * seq_valid.to(l2.dtype)).sum(dim=-1) / torch.clamp_min(
         num_matches.to(l2.dtype), 1.0)
-    losses[f"loss_paramL2_dist_{suffix}"] = per_img.mean() * 0.1 * weight
+    losses[f"loss_paramL2_dist_{suffix}"] = share_mean(per_img) * 0.1 * weight
     return losses

@@ -8,6 +8,12 @@ or with both views stacked (view 0 first):
   gt_params [B, NG, 3], gt_centers [B, NG, 2], gt_pixel_centers [B, H, W, 2],
   depth [B, H, W], k_inv_dot_xy1 [B, 3, H, W].
 The mask focal + dice terms go through kernel B3 (`ops/mask_loss.py`).
+
+Across ranks every loss is this rank's share of the global batch's loss:
+its own numerators over the normalisers of every rank (`all_reduce_sum`),
+its batch means as `share_mean`. The shares sum to the loss of the global
+batch, as the JAX package's one global program computes it; at world size
+1 they are the losses themselves.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import torch.nn.functional as F
 
 from ..core.geometry import normalize, safe_norm
 from ..ops.mask_loss import fused_focal_dice
+from ..parallel.dist import all_reduce_sum, share_mean
 from .hungarian import hungarian
 
 
@@ -147,7 +154,7 @@ def q_loss_segmap(src_p, match, targets):
     ok = (act_f.sum(dim=(1, 2)) >= 1) & (per_img_cnt > 0)
     per_img = torch.where(ok, per_img_sum / torch.clamp_min(per_img_cnt, 1.0),
                           torch.zeros_like(per_img_sum))
-    return per_img.mean()
+    return share_mean(per_img)
 
 
 def detection_losses_siamese(outputs: Dict, targets: Dict, match: torch.Tensor,
@@ -166,14 +173,18 @@ def detection_losses_siamese(outputs: Dict, targets: Dict, match: torch.Tensor,
     def per_view_sum(x):  # [2B, ...] -> [2]
         return x.reshape(2, b, -1).sum(dim=(1, 2))
 
-    num_masks_v = torch.clamp_min(per_view_sum(targets["gt_valid"].to(torch.float32)), 1.0)
-    num_matched_v = torch.clamp_min(per_view_sum(matched_f), 1.0)
+    # the normalisers of the global batch; max(., 1) applies to the global sum
+    class_w = torch.where(matched, 1.0, eos_coef).to(logits.dtype)
+    num_masks_v, num_matched_v, class_w_v = all_reduce_sum([
+        per_view_sum(targets["gt_valid"].to(torch.float32)), per_view_sum(matched_f),
+        per_view_sum(class_w)])
+    num_masks_v = torch.clamp_min(num_masks_v, 1.0)
+    num_matched_v = torch.clamp_min(num_matched_v, 1.0)
 
     # labels: weighted CE with the no-object weight
     target_classes = torch.where(matched, 0, nc1 - 1)
     nll = -torch.gather(torch.log_softmax(logits, dim=-1), 2, target_classes[..., None])[..., 0]
-    class_w = torch.where(matched, 1.0, eos_coef).to(logits.dtype)
-    losses["loss_ce"] = (per_view_sum(nll * class_w) / per_view_sum(class_w)).mean()
+    losses["loss_ce"] = (per_view_sum(nll * class_w) / class_w_v).mean()
 
     # masks: focal + dice on matched pairs (kernel B3)
     gt_masks = targets["gt_masks"]
@@ -189,8 +200,8 @@ def detection_losses_siamese(outputs: Dict, targets: Dict, match: torch.Tensor,
     if not aux:
         pc = F.interpolate(outputs["pixel_centers"], size=(gh, gw), mode="bilinear",
                            align_corners=False).permute(0, 2, 3, 1)  # [2B, H, W, 2]
-        losses["loss_center_pixel"] = safe_norm(
-            torch.abs(targets["gt_pixel_centers"] - pc), dim=-1).mean()
+        losses["loss_center_pixel"] = share_mean(safe_norm(
+            torch.abs(targets["gt_pixel_centers"] - pc), dim=-1))
 
     # params: L1 + cos (+ Q on the final level)
     src_p = outputs["pred_params"]

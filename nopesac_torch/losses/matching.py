@@ -5,13 +5,17 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.dist import all_reduce_sum
+
 
 def matching_nll_loss(log_scores_padded: torch.Tensor, gt_corr_matrix: torch.Tensor) -> torch.Tensor:
-    """-2 x the mean (clamped <= 0) log-score over the GT correspondences;
+    """-2 x the mean (clamped <= 0) log-score over the GT correspondences
+    of the global batch (this rank's share across ranks);
     gt_corr_matrix [B, N1+1, N2+1] bool."""
     clamped = torch.clamp_max(log_scores_padded, 0.0)
     total = torch.where(gt_corr_matrix, -clamped, torch.zeros_like(clamped)).sum()
-    count = torch.clamp_min(gt_corr_matrix.to(torch.float32).sum(), 1.0)
+    (count,) = all_reduce_sum([gt_corr_matrix.to(torch.float32).sum()])
+    count = torch.clamp_min(count, 1.0)
     return total / count * 2.0
 
 

@@ -22,6 +22,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.dist import sum_over_ranks, world_size
+
 FLAX_NORM_EPS = 1e-6
 
 
@@ -135,7 +137,14 @@ class BatchNorm2d(Cast, nn.Module):
     statistics stay f32 and the output is in the compute dtype. The
     state_dict is the reference's (weight, bias, running_mean,
     running_var); a checkpoint's `num_batches_tracked` is read and dropped,
-    so the reference's state_dict loads strictly."""
+    so the reference's state_dict loads strictly.
+
+    With a process group of more than one rank, the train-mode statistics
+    are those of the global batch, as in the JAX package's one global
+    program: one all-reduce (SUM) of every rank's per-channel sums of x and
+    x^2 and its count per layer and forward, which carries the gradient
+    (its backward all-reduces it), so the running statistics stay equal on
+    every rank. Eval mode calls no collective."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
@@ -154,8 +163,11 @@ class BatchNorm2d(Cast, nn.Module):
         dt = self.compute_dtype()
         x = x.to(torch.float32)
         if self.training:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            if world_size() > 1:
+                mean, sq = _global_moments(x)
+            else:
+                mean, sq = x.mean(dim=(0, 2, 3)), (x * x).mean(dim=(0, 2, 3))
+            var = torch.clamp_min(sq - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
@@ -165,6 +177,16 @@ class BatchNorm2d(Cast, nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.weight
         return ((x - mean[None, :, None, None]) * mul[None, :, None, None]
                 + self.bias[None, :, None, None]).to(dt)
+
+
+def _global_moments(x: torch.Tensor):
+    """E[x] and E[x^2] per channel of NCHW x over every rank's batch,
+    differentiable: the all-reduce's backward sums the incoming gradients
+    over the ranks."""
+    count = torch.full((1,), float(x.numel() // x.shape[1]), device=x.device)
+    sums = sum_over_ranks(torch.cat([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)), count]))
+    c = x.shape[1]
+    return sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
 
 
 class ConvNorm(Conv2d):

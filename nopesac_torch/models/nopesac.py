@@ -29,6 +29,7 @@ from ..losses import camera_losses as CL
 from ..losses.criterion import detection_losses_siamese, match_planes_multi
 from ..losses.matching import build_pred_corr_matrix, intersect_with_valid, matching_nll_loss
 from ..ops.select import fused_select_maps
+from ..parallel.dist import world_size
 from .camera_head import (
     PlaneCameraHead,
     build_geo_sequence,
@@ -154,13 +155,15 @@ class PlaneTRNopeSAC(nn.Module):
                       aim_trans: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """Training forward: detection over every supervision level, matching
         and the NOPE-SAC camera loss zoo; returns the dict of weighted scalar
-        losses. The model must be in train mode (batch-statistics BN).
+        losses (across ranks, this rank's shares of the global batch's
+        losses, which sum to them). The model must be in train mode (batch-statistics BN).
 
         batch: image0/image1 [B, H, W, 3] normalised f32, targets0/targets1
         (wire format or unpacked), gt_pose [B, 7], corr_idx1/2 [B, NQ],
         corr_valid [B, NQ]. `gen` (on the model's device) draws the dropout
         masks and the AIM random poses; `aim_rot` [N, 4] / `aim_trans` [N, 3]
-        replace the random poses when given (N = B * max(AIM_RAND_POSES // B, 1)).
+        replace the random poses when given (N = B * max(AIM_RAND_POSES // (B * world), 1),
+        world the number of ranks).
 
         Both views run as one 2B batch, so trainable BN pools its statistics
         over both views, as in the JAX package. All refinement branches run
@@ -225,7 +228,8 @@ class PlaneTRNopeSAC(nn.Module):
             rec_tran, rec_tran_feat, tran_in = head.trans_rec(init["tran"])
             losses["loss_trans_initCamRec"] = CL.trans_rec_loss(tran_in, rec_tran)
         if self.cam_rec_on and st.rand_on:
-            n = b * max(AIM_RAND_POSES // b, 1)
+            # the JAX step's count on the global batch, split evenly
+            n = b * max(AIM_RAND_POSES // (b * world_size()), 1)
             if (aim_rot is None or aim_trans is None) and gen is None:
                 raise ValueError("the AIM random poses need a generator or injected poses")
             if aim_rot is None:

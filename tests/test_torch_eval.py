@@ -281,13 +281,6 @@ def test_postprocess_and_evaluator_match_jax_exactly(tmp_path):
         assert_same(a, b)
 
 
-def test_evaluator_refuses_distributed(tmp_path):
-    _, tcfg = _eval_cfgs(str(tmp_path))
-    with pytest.raises(NotImplementedError):
-        MP3DEvaluator("synthetic_test", tcfg, distributed=True,
-                      dataset_list=make_dataset(1, 2, h=H, w=W))
-
-
 # --------------------------------------------------- (f) the whole entry point
 
 def _tiny_cfgs(out_dir):
