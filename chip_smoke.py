@@ -130,8 +130,34 @@ Phases, in order; any failure exits non-zero before the last line:
      pairs/s: two processes sharing one card over host-staged gloo, not a
      scaling figure. Each launch has a timeout; a rank that fails or hangs
      fails the phase.
-Phases 11-13 and 15 run right after phase 7, while the eval model is on the
-card; phases 14 and 16 run after phase 10, phase 17 after phase 14.
+ 18. the eval ablations at full width: configs/inference_mp3d.yaml (phase
+     5's weights) at 480x640, 4 pairs per batch of synthetic pairs with 12
+     planes per view and their correspondences (the port's generator): (a)
+     TEST.POSE_REFINEMENT_WITH_GT_MATCHERS with the GT planes' noise
+     (`engine/test.py:gt_geo_from_samples`), (b) the SparsePlanes top-1
+     camera from a table of the pairs' GT poses, one quaternion negated,
+     (c) MODEL.DEPTH_ON (the depth branch seeded); each a warm-up and 3
+     batches beside phase 5's eval step on the same batches: B1 and B2
+     once per batch, the PixelCameraHead's decoder run once per batch but
+     never under (b), num_matches the GT count under (a), camera_init the
+     pickle's pose (normalised, w >= 0) under (b), depth0/depth1
+     [4, 480, 640, 1] f32 under (c); (a) through the fused-tail backbone (B4
+     24 times per batch), held to unfused (a); the three at 96x128 on the
+     card against the CPU at phase 7's limits, depth0/depth1 within 1e-4 of
+     max |CPU|; `EvalRunner.test` with (a) and (c) over 8 pairs: B1 and B2
+     once per batch, depth_l1_dist and the camera metrics finite; and with
+     (b) through a pickle file;
+ 19. the train branches: configs/train_mp3d_step3.yaml with MODEL.DEPTH_ON
+     (f32, REMAT off) on phase 9's batches, a warm-up and 3 steps: every
+     loss of the JAX train_forward and loss_depth_pixel finite, each B3
+     counter at 3 per step, ms/step and peak memory beside phase 9's; one
+     step of the shipped bf16 policy with DEPTH_ON and
+     MODEL.FPN_TRAIN_DTYPE bfloat16 (as shipped the pixel path trains in
+     f32): the depth head's output bf16, every loss finite; then phase 10's
+     one-pair card-versus-CPU step with DEPTH_ON and SOLVER.OPTIMIZER SGD,
+     at phase 10's limits.
+Phases 11-13, 15 and 18 run right after phase 7, while the eval model is on
+the card; phases 14, 16 and 19 run after phase 10, phase 17 after phase 14.
 Phases 6, 7 and 12 hold the card to the CPU, or the fused path to the
 unfused one, as the CPU is held to JAX in tests/test_torch_slice.py: valid
 planes equal, labels agree on >= 99.9% of pixels, log-scores within 1.5e-3
@@ -229,6 +255,9 @@ BN_TOL = 5e-5          # tests/test_torch_train.py
 CAM_TOL = 1e-3         # tests/test_torch_eval.py
 CAMERA_ERRORS = ("T median err", "T mean err", "R median err", "R mean err")
 PLANE_ERRORS = ("mean_normal", "median_normal", "mean_offset", "median_offset")
+ABLATIONS = ("gt_matcher", "sp_topcam", "depth")  # phase 18's variants (a), (b), (c)
+ABLATION_PAIRS = 8     # phase 18's EvalRunner.test
+DEPTH_TOL = 1e-4       # of max |ref|: depth0/depth1, tests/test_torch_ablations.py
 
 
 class SmokeFailure(Exception):
@@ -850,10 +879,10 @@ def module_grad_norms(torch, model):
     return norms
 
 
-def timed_train_steps(torch, cfg, batches, card, what):
+def timed_train_steps(torch, cfg, batches, card, what, loss_keys=TRAIN_LOSS_KEYS):
     """A fresh seeded model of `cfg`, a warm-up step on batches[0], then one
     timed step per further batch: every loss of the JAX train_forward
-    present and finite, no skipped step, a finite positive gradient norm in
+    (`loss_keys`) present and finite, no skipped step, a finite positive gradient norm in
     each module, B3 at 3 launches per step and nothing else. Returns the
     launch counts, the mean ms per step and the peak allocated bytes of the
     timed steps."""
@@ -878,9 +907,9 @@ def timed_train_steps(torch, cfg, batches, card, what):
     for k, (metrics, norms) in enumerate(rows):
         losses = {n: float(v) for n, v in metrics.items()
                   if n not in ("total_loss", "grad_norm", "skipped_nonfinite")}
-        if sorted(losses) != TRAIN_LOSS_KEYS:
+        if sorted(losses) != loss_keys:
             raise SmokeFailure(f"train step {k} ({what}): loss keys differ from the JAX "
-                               f"train_forward's: {sorted(set(losses) ^ set(TRAIN_LOSS_KEYS))}")
+                               f"train_forward's: {sorted(set(losses) ^ set(loss_keys))}")
         bad = sorted(n for n, v in losses.items() if not math.isfinite(v))
         if bad or float(metrics["skipped_nonfinite"]) != 0.0:
             raise SmokeFailure(f"train step {k} ({what}): non-finite losses {bad}, skipped "
@@ -965,7 +994,9 @@ def assignment_gap(cost, n_gt):
     return second - best
 
 
-def check_train_reference(torch, dev):
+def check_train_reference(torch, dev, opts=(), what="train reference 96x128"):
+    """Phase 10 (and, with `opts`, phase 19's variant of it): one train step
+    of one pair on the card and on the CPU from the same weights and batch."""
     from nopesac_torch.engine.train import TrainStep, build_train_model, synthetic_batches
     from nopesac_torch.losses import camera_losses
     from nopesac_torch.models.nopesac import AIM_RAND_POSES
@@ -973,7 +1004,7 @@ def check_train_reference(torch, dev):
     # one pair, as tests/test_torch_train.py: at 96x128 the pose stacks end
     # at 1x1, where BN over two pairs' two values amplifies rounding noise
     cfg = load_train_cfg(SMOKE_CONFIG, ["MODEL.SEM_SEG_HEAD.DROPOUT", "0.0",
-                                        "SOLVER.IMS_PER_BATCH", "1"])
+                                        "SOLVER.IMS_PER_BATCH", "1"] + list(opts))
     cpu_model = build_train_model(cfg, device="cpu", seed=0)
     separate_queries(torch, cpu_model, seed=1)
     card_model = build_train_model(cfg, device=dev)
@@ -990,10 +1021,10 @@ def check_train_reference(torch, dev):
     got_match, _, _ = detect_matches(torch, copy.deepcopy(card_model), card_batch)
     gap = min(assignment_gap(c[i], int(n_gt[i])) for c in costs for i in range(c.shape[0]))
     if gap < MATCH_GAP:
-        raise SmokeFailure(f"train reference: the optimal assignment's gap {gap:.2e} is below "
+        raise SmokeFailure(f"{what}: the optimal assignment's gap {gap:.2e} is below "
                            f"{MATCH_GAP}, so the match can tie")
     if not all(torch.equal(g.cpu(), r) for g, r in zip(got_match, ref_match)):
-        raise SmokeFailure("train reference: the match differs between the card and the CPU")
+        raise SmokeFailure(f"{what}: the match differs between the card and the CPU")
 
     ref = TrainStep(cpu_model, cfg, seed=0)(batch, *aim)
     got = TrainStep(card_model, cfg, seed=0)(card_batch, *(a.to(dev) for a in aim))
@@ -1012,11 +1043,13 @@ def check_train_reference(torch, dev):
     param_rel = (diff / sum(float(p.detach().pow(2).sum()) for p in cpu_params.values())) ** 0.5
     param_max = max(float((p.detach().cpu() - cpu_params[n].detach()).abs().max())
                     for n, p in card_model.named_parameters())
-    print(f"[train reference 96x128] card vs CPU: match equal on {len(ref_match)} levels (gap "
+    print(f"[{what}] card vs CPU: match equal on {len(ref_match)} levels (gap "
           f"{gap:.2e}), {len(ref) - 3} losses, {len(bad)} outside tolerance, grad norm rel "
-          f"{gn_rel:.2e}, params after AdamW rel {param_rel:.2e} (max |diff| {param_max:.2e})")
+          f"{gn_rel:.2e}, params after {cfg.SOLVER.OPTIMIZER} rel {param_rel:.2e} (max |diff| "
+          f"{param_max:.2e})")
     if bad or not gn_rel <= 1e-3 or not param_rel <= 1e-5:
-        raise SmokeFailure(f"train reference: the card disagrees with the CPU: {bad}")
+        raise SmokeFailure(f"{what}: the card disagrees with the CPU: {bad}")
+    return sorted(k for k in ref if k not in ("total_loss", "grad_norm", "skipped_nonfinite"))
 
 
 def run_bf16_train_path(torch, dev, card, batches, f32_ms, f32_peak):
@@ -1950,6 +1983,294 @@ def run_entry_point(torch, dev, fused, planar_out, card):
               f"{n_inst}), host CPU of {card}")
 
 
+def ablation_batches(cfg, n_batches, n_pairs, seed):
+    """`n_batches` batches of `n_pairs` synthetic pairs of the config's size
+    with 12 planes per view and their correspondences (the port's
+    generator): (pairs, eval samples) per batch."""
+    from nopesac_torch.data.mapper import PairMapper
+    from nopesac_torch.data.synthetic import make_dataset
+
+    h, w = cfg.INPUT.IMAGE_SIZE
+    pairs = make_dataset(n_pairs=n_pairs * n_batches, n_planes=TRAIN_PLANES, seed=seed, h=h, w=w)
+    mapper = PairMapper(cfg.MODEL.SEM_SEG_HEAD.NUM_OBJECT_QUERIES, (h, w), is_train=False)
+    chunks = [pairs[k * n_pairs:(k + 1) * n_pairs] for k in range(n_batches)]
+    return [(chunk, [mapper(p) for p in chunk]) for chunk in chunks]
+
+
+def sp_topcam_table(pairs):
+    """A SparsePlanes top-1 table of the pairs' GT poses, the first pair's
+    quaternion negated (the sign canonicalisation must undo it)."""
+    import numpy as np
+
+    table = {}
+    for i, d in enumerate(pairs):
+        q = np.asarray(d["rel_pose"]["rotation"], np.float32) * (-1.0 if i == 0 else 1.0)
+        table[d["0"]["image_id"] + "-" + d["1"]["image_id"]] = {
+            "position": np.asarray(d["rel_pose"]["position"], np.float32), "rotation": q}
+    return table
+
+
+def ablation_args(torch, variant, batches, nq, seed):
+    """The eval-step arguments of each batch for `variant`: the uint8 images,
+    and with (a) the GT geometry with its noise (`engine/test.py`'s
+    functions, one generator over the batches), with (b) the pickle's
+    poses. Host tensors; the eval step moves them."""
+    import numpy as np
+
+    from nopesac_torch.engine.test import gt_geo_from_samples, sp_topcam_of
+
+    rng = np.random.default_rng(seed)
+    table = sp_topcam_table([p for chunk, _ in batches for p in chunk])
+    out = []
+    for chunk, samples in batches:
+        args = [torch.from_numpy(np.stack([s[f"image{v}"] for s in samples])) for v in "01"]
+        if variant == "gt_matcher":
+            extra = gt_geo_from_samples(chunk, samples, nq, noise_rng=rng)
+        elif variant == "sp_topcam":
+            extra = sp_topcam_of(table, chunk)
+        else:
+            extra = None
+        if extra is not None:
+            args.append({k: torch.from_numpy(v) for k, v in extra.items()})
+        out.append(args)
+    return out
+
+
+def ablation_steps(torch, model, depth_model, h, w, cfg):
+    from nopesac_torch.engine.predict import make_eval_step
+
+    kw = dict(pixel_mean=cfg.MODEL.PIXEL_MEAN, pixel_std=cfg.MODEL.PIXEL_STD)
+    return {"gt_matcher": make_eval_step(model, h, w, with_gt_geo=True, **kw),
+            "sp_topcam": make_eval_step(model, h, w, with_init_cam=True, **kw),
+            "depth": make_eval_step(depth_model, h, w, **kw)}
+
+
+def depth_model_of(torch, cfg, model, dev):
+    """The model of `cfg` with MODEL.DEPTH_ON on `dev`: `model`'s weights,
+    the depth branch seeded."""
+    from nopesac_torch.engine.predict import build_model_from_cfg
+
+    cfg = cfg.clone()
+    cfg.defrost()
+    cfg.MODEL.DEPTH_ON = True
+    depth_model = build_model_from_cfg(cfg, device=dev, seed=0)
+    missing, unexpected = depth_model.load_state_dict(model.state_dict(), strict=False)
+    if unexpected or not missing or not all(
+            k.startswith(("sem_seg_head.top_down_depth.", "sem_seg_head.depth.")) for k in missing):
+        raise SmokeFailure(f"the DEPTH_ON model's extra keys are not the depth branch: {missing}")
+    return depth_model
+
+
+def check_depth(torch, out, b, h, w, what):
+    for v in ("depth0", "depth1"):
+        d = out[v]
+        if tuple(d.shape) != (b, h, w, 1) or d.dtype != torch.float32 or not bool(
+                torch.isfinite(d).all()):
+            raise SmokeFailure(f"{what}: {v} is {tuple(d.shape)} {d.dtype}, want ({b}, {h}, {w}, "
+                               f"1) float32, finite")
+
+
+def compare_depth(torch, ref, got, what):
+    err = max(float((got[v].cpu() - ref[v].cpu()).abs().max()) / float(ref[v].abs().max())
+              for v in ("depth0", "depth1"))
+    print(f"[{what}] depth0/depth1 max |diff| / max |ref| {err:.2e}")
+    if not err <= DEPTH_TOL:
+        raise SmokeFailure(f"{what}: the depth maps disagree ({err:.2e} > {DEPTH_TOL})")
+
+
+def run_ablations(torch, dev, model, fused, card):
+    """Phase 18: the eval ablations (a) the noisy GT-matcher, (b) the
+    SparsePlanes top-1 camera and (c) MODEL.DEPTH_ON at full width, each
+    beside phase 5's eval step on the same batches; (a) again through the
+    fused-tail backbone; the three at 96x128 on the card against the CPU;
+    EvalRunner.test with (a) and (c) together."""
+    import tempfile
+
+    from nopesac_torch.config.config import get_cfg
+    from nopesac_torch.engine.predict import build_model_from_cfg, make_eval_step
+    from nopesac_torch.engine.test import EvalRunner
+    from nopesac_torch.utils.device import LAUNCHES
+
+    cfg = load_cfg()
+    h, w = cfg.INPUT.IMAGE_SIZE
+    nq = cfg.MODEL.SEM_SEG_HEAD.NUM_OBJECT_QUERIES
+    t0 = time.perf_counter()
+    batches = ablation_batches(cfg, N_BATCHES + 1, N_PAIRS, seed=21)
+    depth_model = depth_model_of(torch, cfg, model, dev)
+    print(f"[ablations] {N_BATCHES + 1} batches of {N_PAIRS} synthetic pairs ({TRAIN_PLANES} "
+          f"planes per view) and the DEPTH_ON model in {time.perf_counter() - t0:.2f} s")
+    steps = ablation_steps(torch, model, depth_model, h, w, cfg)
+    steps["plain (phase 5)"] = make_eval_step(model, h, w, cfg.MODEL.PIXEL_MEAN,
+                                              cfg.MODEL.PIXEL_STD)
+    pixel_camera_calls = []
+    hooks = [m.camera_head.pixel_decoder.register_forward_hook(
+        lambda *_: pixel_camera_calls.append(1)) for m in (model, depth_model, fused)]
+    outs, times = {}, {}
+    with torch.inference_mode():
+        for variant, step in steps.items():
+            args = ablation_args(torch, variant, batches, nq, seed=42)
+            step(*args[0])  # warm-up
+            torch.cuda.synchronize()
+            LAUNCHES.reset()
+            pixel_camera_calls.clear()
+            t0 = time.perf_counter()
+            outs[variant] = [step(*a) for a in args[1:]]
+            torch.cuda.synchronize()
+            times[variant] = (time.perf_counter() - t0) / N_BATCHES * 1e3
+            counts = LAUNCHES.snapshot()
+            want = launches_want(select_maps=N_BATCHES, sinkhorn=N_BATCHES)
+            calls = len(pixel_camera_calls)
+            print(f"[ablations] {variant}: {times[variant]:.2f} ms/batch of {N_PAIRS} pairs "
+                  f"(wall), launches {counts}, PixelCameraHead calls {calls}, matches per pair "
+                  f"{[int(x) for o in outs[variant] for x in o['num_matches']]}")
+            if counts != want:
+                raise SmokeFailure(f"ablation {variant}: launches {counts}, want {want}")
+            if calls != (0 if variant == "sp_topcam" else N_BATCHES):
+                raise SmokeFailure(f"ablation {variant}: the PixelCameraHead ran {calls} times")
+            for o in outs[variant]:
+                check_outputs(torch, o, N_PAIRS, h, w, nq)
+                if variant == "depth":
+                    check_depth(torch, o, N_PAIRS, h, w, "ablation depth")
+        for (chunk, samples), o in zip(batches[1:], outs["gt_matcher"]):
+            want = torch.tensor([int(s["corr_valid"].sum()) for s in samples], dtype=torch.int32)
+            if not torch.equal(o["num_matches"].cpu(), want):
+                raise SmokeFailure("ablation gt_matcher: num_matches is not the GT count")
+        for (chunk, _), o in zip(batches[1:], outs["sp_topcam"]):
+            rot = o["cameras"]["camera_init"]["rot"].cpu()
+            want = torch.stack([torch.tensor(d["rel_pose"]["rotation"], dtype=torch.float32)
+                                for d in chunk])
+            want = want / want.norm(dim=1, keepdim=True)
+            want = torch.where(want[:, :1] < 0, -want, want)
+            if not float((rot - want).abs().max()) <= 1e-6:
+                raise SmokeFailure("ablation sp_topcam: camera_init is not the pickle's pose")
+        print("[ablations] ms/batch (wall, 3 warm batches each) on {}: {}".format(
+            card, {k: round(v, 2) for k, v in times.items()}))
+
+        # (a) through the fused-tail backbone
+        step = make_eval_step(fused, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD,
+                              with_gt_geo=True)
+        args = ablation_args(torch, "gt_matcher", batches, nq, seed=42)
+        step(*args[0])
+        torch.cuda.synchronize()
+        LAUNCHES.reset()
+        t0 = time.perf_counter()
+        fused_outs = [step(*a) for a in args[1:]]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / N_BATCHES * 1e3
+        counts = LAUNCHES.snapshot()
+        want = launches_want(select_maps=N_BATCHES, sinkhorn=N_BATCHES,
+                             bottleneck_tail=B4_LAUNCHES * N_BATCHES)
+        print(f"[ablations] gt_matcher fused: {ms:.2f} ms/batch (wall), launches {counts}")
+        if counts != want:
+            raise SmokeFailure(f"ablation gt_matcher fused: launches {counts}, want {want}")
+        for k, (o, r) in enumerate(zip(fused_outs, outs["gt_matcher"])):
+            compare_with_cpu(torch, r, o, f"ablation gt_matcher fused batch {k}",
+                             versus="fused vs unfused")
+    for hook in hooks:
+        hook.remove()
+    del outs, fused_outs
+
+    # the card against the CPU at 96x128
+    small = load_cfg((96, 128))
+    small_batches = ablation_batches(small, 1, 2, seed=22)
+    per_device = {}
+    for d in ("cpu", dev):
+        m = build_model_from_cfg(small, device=d, seed=0)
+        per_device[d] = ablation_steps(torch, m, depth_model_of(torch, small, m, d), 96, 128, small)
+    for variant in ABLATIONS:
+        args = ablation_args(torch, variant, small_batches, nq, seed=42)[0]
+        ref = per_device["cpu"][variant](*args)
+        got = per_device[dev][variant](*args)
+        compare_with_cpu(torch, ref, got, f"ablation {variant} 96x128")
+        if variant == "depth":
+            compare_depth(torch, ref, got, "ablation depth 96x128")
+    del per_device
+
+    # the entry point with (a) and (c) together
+    out_dir = os.path.join(REPO, "output", "ablation_entry_point")
+    ecfg = get_cfg()
+    ecfg.merge_from_file(CONFIG)
+    ecfg.merge_from_list(["MODEL.WEIGHTS", "", "MODEL.DEPTH_ON", "True",
+                          "TEST.POSE_REFINEMENT_WITH_GT_MATCHERS", "True",
+                          "TEST.POSE_REFINEMENT_WITH_GT_NOISE_MATCHERS", "True",
+                          "DATASETS.TEST", '("synthetic_test",)', "OUTPUT_DIR", out_dir])
+    ecfg.freeze()
+    pairs = [p for chunk, _ in ablation_batches(ecfg, 1, ABLATION_PAIRS, seed=23) for p in chunk]
+    runner = EvalRunner(ecfg, depth_model)
+    LAUNCHES.reset()
+    results = runner.test(dataset_list=pairs)
+    counts = LAUNCHES.snapshot()
+    n = ABLATION_PAIRS // N_PAIRS
+    want = launches_want(select_maps=n, sinkhorn=n)
+    keys = ("depth_l1_dist", "T median err", "R median err", "T err < 1.0", "R err < 30")
+    print(f"[ablations] EvalRunner.test (GT-matcher with noise + DEPTH_ON) over {ABLATION_PAIRS} "
+          f"pairs: {runner.last_eval_stats}, launches {counts}, metrics "
+          f"{ {k: round(float(results[k]), 4) for k in keys if k in results} } on {card}")
+    if counts != want:
+        raise SmokeFailure(f"ablation entry point launches {counts}, want {want}")
+    bad = [k for k in keys if k not in results or not math.isfinite(float(results[k]))]
+    if bad:
+        raise SmokeFailure(f"ablation entry point: metrics missing or not finite: {bad}")
+    with tempfile.TemporaryDirectory() as tmp:  # (b) through the entry point: the pickle read
+        import pickle
+
+        path = os.path.join(tmp, "sp_top1.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(sp_topcam_table(pairs), f)
+        scfg = ecfg.clone()
+        scfg.defrost()
+        scfg.merge_from_list(["MODEL.DEPTH_ON", "False",
+                              "TEST.POSE_REFINEMENT_WITH_GT_MATCHERS", "False",
+                              "MODEL.CAMERA_HEAD.INFERENCE_SP_TOPCAM_ON", "True",
+                              "MODEL.CAMERA_HEAD.INFERENCE_SP_TOPCAM_PATH", path])
+        sp_results = EvalRunner(scfg, model).test(dataset_list=pairs)
+    print(f"[ablations] EvalRunner.test (SP top-1 camera): "
+          f"{ {k: round(float(sp_results[k]), 4) for k in keys[1:]} }")
+    if not all(math.isfinite(float(sp_results[k])) for k in keys[1:]):
+        raise SmokeFailure("ablation entry point (SP top-1 camera): metrics not finite")
+
+
+def run_depth_train_path(torch, dev, card, batches, f32_ms, f32_peak):
+    """Phase 19: the DEPTH_ON train step (f32, REMAT off) on phase 9's
+    batches, then one step of the shipped bf16 policy with DEPTH_ON and the
+    pixel path in bf16, then phase 10's reference with DEPTH_ON and SGD."""
+    from nopesac_torch.engine.train import TrainStep, build_train_model
+
+    size = ["SOLVER.IMS_PER_BATCH", str(TRAIN_PAIRS), "INPUT.IMAGE_SIZE", "(480, 640)",
+            "MODEL.DEPTH_ON", "True"]
+    cfg = load_train_cfg(TRAIN_CONFIG, F32_TRAIN + size)
+    keys = sorted(TRAIN_LOSS_KEYS + ["loss_depth_pixel"])
+    _, ms, peak = timed_train_steps(torch, cfg, batches, card, "f32, REMAT off, DEPTH_ON",
+                                    loss_keys=keys)
+    print(f"[train depth] ms/step: DEPTH_ON {ms:.2f} against phase 9's {f32_ms:.2f}; peak memory "
+          f"GiB {peak / 2**30:.2f} against {f32_peak / 2**30:.2f}; {TRAIN_PAIRS} pairs at "
+          f"480x640 on {card}")
+
+    # the shipped bf16 policy keeps the pixel path f32 in training
+    # (FPN_TRAIN_DTYPE float32); with it bf16 the depth branch computes in bf16
+    cfg = load_train_cfg(TRAIN_CONFIG, size + ["MODEL.FPN_TRAIN_DTYPE", "bfloat16"])
+    model = build_train_model(cfg, device=dev, seed=0)
+    step = TrainStep(model, cfg, seed=0)
+    dtypes = []
+    hook = model.sem_seg_head.depth.register_forward_hook(lambda m, i, o: dtypes.append(o.dtype))
+    metrics = step(batches[0])
+    torch.cuda.synchronize()
+    hook.remove()
+    bad = sorted(k for k, v in metrics.items() if not math.isfinite(float(v)))
+    print(f"[train depth] bf16 policy (FPN_TRAIN_DTYPE bfloat16), one step: depth head output "
+          f"{dtypes}, loss_depth_pixel {float(metrics['loss_depth_pixel']):.4f}, total "
+          f"{float(metrics['total_loss']):.4f}, skipped {float(metrics['skipped_nonfinite'])}")
+    if dtypes != [torch.bfloat16] or bad or float(metrics["skipped_nonfinite"]) != 0.0:
+        raise SmokeFailure(f"bf16 DEPTH_ON step: depth head {dtypes}, non-finite {bad}")
+    del model, step
+    torch.cuda.empty_cache()
+
+    got = check_train_reference(torch, dev, ["MODEL.DEPTH_ON", "True", "SOLVER.OPTIMIZER", "SGD"],
+                                "train reference 96x128, DEPTH_ON + SGD")
+    if "loss_depth_pixel" not in got:
+        raise SmokeFailure("train reference DEPTH_ON: no loss_depth_pixel")
+
+
 def numpy_tree(tree):
     if isinstance(tree, dict):
         return {k: numpy_tree(v) for k, v in tree.items()}
@@ -2033,6 +2354,7 @@ def main(argv=None):
         run_entry_point(torch, dev, fused, planar_out, card)
         bf16_counts = run_bf16_eval_path(torch, dev, model, fused, batches, card)
         b4["bf16"]["launches"] = bf16_counts["bottleneck_tail"]
+        run_ablations(torch, dev, model, fused, card)
         del model, fused, batches, outs, planar_out
         torch.cuda.empty_cache()
         kernels += check_mask_loss(torch, dev)
@@ -2041,6 +2363,7 @@ def main(argv=None):
         check_train_reference(torch, dev)
         bf16_train_counts = run_bf16_train_path(torch, dev, card, train_batches, step_ms,
                                                 step_peak)
+        run_depth_train_path(torch, dev, card, train_batches, step_ms, step_peak)
         del train_batches
         torch.cuda.empty_cache()
         check_bf16_train_reference(torch, dev)

@@ -9,7 +9,11 @@ go through `data/augmentation.py:simclr_augment`, drawn from a generator
 seeded by the loader per item (`aug_seed`), else from the mapper's own.
 Evaluation (`is_train=False`): the images stay uint8 (the eval step
 normalises them on the device) and targets are attached only with
-`eval_gt_box`. Both carry the pair's metas, pose and correspondences.
+`eval_gt_box`. Both carry the pair's metas, pose and correspondences. The
+pose's quaternion is sign-canonical (w >= 0) unless `camera_cls_on`
+(MODEL.CAMERA_HEAD.CLASSIFICATION_ON: the camera bins fix the sign); with
+`load_bins` the meta also holds the pose's bins, `tran_cls` and `rot_cls`
+(`data/cam_bins.py`, from the in-repo `camCls/cam_bins.npz`).
 
 Images come from the pair dict (`data/synthetic.py` renders them) or from
 `file_name` (the reference jsons' MP3D prefix replaced by `root_dir`,
@@ -37,6 +41,7 @@ import numpy as np
 
 from ..utils import rle
 from .augmentation import simclr_augment
+from .cam_bins import CameraBins
 
 MP3D_PATH_PREFIX = "/Pool1/users/jinlinyi/dataset/mp3d_rpnet_v4_sep20/"
 DEFAULT_FOCAL = 517.97
@@ -69,7 +74,8 @@ class PairMapper:
     def __init__(self, num_queries: int = 50, image_size=(480, 640),
                  pixel_mean=(123.675, 116.280, 103.530), pixel_std=(58.395, 57.120, 57.375),
                  is_train: bool = True, eval_gt_box: bool = False, root_dir: str = "",
-                 dataset_kind: str = "mp3d", augmentation: bool = False, seed: int = 42):
+                 dataset_kind: str = "mp3d", augmentation: bool = False, seed: int = 42,
+                 camera_cls_on: bool = False, load_bins: bool = False):
         self.nq = num_queries
         self.h, self.w = image_size
         if self.w % 8:
@@ -86,6 +92,8 @@ class PairMapper:
         self.kind = dataset_kind
         self.augmentation = augmentation and is_train
         self._aug_rng = np.random.default_rng(seed)
+        self.camera_cls_on = camera_cls_on
+        self.bins = CameraBins(dataset=dataset_kind) if load_bins else None
 
     def image(self, view: dict) -> np.ndarray:
         """The view's uint8 image [H, W, 3]: in memory, else read from
@@ -232,14 +240,18 @@ class PairMapper:
             sample["targets0"] = self.view_targets(pair["0"])
             sample["targets1"] = self.view_targets(pair["1"])
 
-        # relative pose with the quaternion sign-canonical (w >= 0)
+        # relative pose with the quaternion sign-canonical (w >= 0), but where
+        # the camera bins' convention fixes the sign (siamese_planeTR.py:556)
         rel = pair.get("rel_pose")
         if rel is not None:
             rot = np.asarray(rel["rotation"], np.float32)
-            if rot[0] < 0:
+            if rot[0] < 0 and not self.camera_cls_on:
                 rot = -rot
             tran = np.asarray(rel["position"], np.float32)
             sample["gt_pose"] = np.concatenate([tran, rot]).astype(np.float32)
+            if self.bins is not None:
+                sample["meta"]["tran_cls"] = self.bins.xyz2class(*rel["position"])
+                sample["meta"]["rot_cls"] = self.bins.quat2class(*rel["rotation"])
         else:
             sample["gt_pose"] = np.asarray([0, 0, 0, 1, 0, 0, 0], np.float32)
 

@@ -19,7 +19,8 @@ name (`train_mp3d_step2.yaml:21` sets MODEL.WEIGHTS to
 `OUTPUT_DIR/model_final.pth` and `OUTPUT_DIR/last_checkpoint`, a text file
 holding the newest file's name. (The JAX package writes orbax directories
 under `OUTPUT_DIR/checkpoints/` instead.) Each file is one `torch.save` dict
-`{"model": state_dict, "optimizer": AdamW state_dict, "iteration": N,
+`{"model": state_dict, "optimizer": the optimizer's state_dict (AdamW's
+moments, or SGD's momentum buffers), "iteration": N,
 "trainer": {"step", "updates", "generator"}}`, the last three from
 `engine/train.py:TrainStep.state_dict`. Across ranks, rank 0 writes and
 every rank waits for it; every rank restores the same file.

@@ -1,12 +1,18 @@
-"""AdamW with the JAX package's parameter groups (counterpart of its
-`engine/optimizer.py`, an optax chain): per-module lr multipliers, weight
-decay 0 for norm layers and SOLVER.WEIGHT_DECAY_EMBED for the query
-embedding, MODEL.FREEZE, full-model gradient clipping and detectron2's
-WarmupMultiStepLR schedule.
+"""AdamW or SGD (SOLVER.OPTIMIZER) with the JAX package's parameter groups
+(counterpart of its `engine/optimizer.py`, an optax chain): per-module lr
+multipliers, weight decay 0 for norm layers and SOLVER.WEIGHT_DECAY_EMBED for
+the query embedding, MODEL.FREEZE, full-model gradient clipping and
+detectron2's WarmupMultiStepLR schedule.
 
 The optax chain computes, per leaf, update = -lr(count) * mult *
 (adam(g) + wd * p); torch's AdamW with lr = lr(count) * mult and
 weight_decay = wd does the same arithmetic (decoupled decay scaled by lr).
+For SGD the chain is trace(SOLVER.MOMENTUM), then the decay, then the lr:
+update = -lr(count) * mult * (buf + wd * p) with buf = momentum * buf + g
+from buf = 0. torch.optim.SGD(weight_decay=wd) is not that (it adds wd * p
+to g inside the buffer), so `SGD` below keeps the decay outside it.
+An unknown SOLVER.OPTIMIZER raises (the JAX package takes any value other
+than ADAMW as SGD).
 """
 from __future__ import annotations
 
@@ -66,13 +72,43 @@ def apply_freeze(model: nn.Module, frozen: Iterable[str]) -> List[str]:
     return names
 
 
-def build_optimizer(cfg, model: nn.Module) -> torch.optim.AdamW:
-    """AdamW over the trainable parameters, one group per (lr multiplier,
-    weight decay); each group carries its `lr_mult`. FrozenBN statistics
-    are buffers and never reach it."""
+class SGD(torch.optim.Optimizer):
+    """SGD with momentum and weight decay outside the momentum buffer, as the
+    optax chain trace -> add_decayed_weights -> scale(-lr) computes it:
+    buf = momentum * buf + g (buf = 0 before the first step), then
+    p -= lr * (buf + weight_decay * p). The buffers are the optimizer state
+    (`momentum_buffer`), which a checkpoint saves."""
+
+    def __init__(self, params, lr: float, momentum: float = 0.9, weight_decay: float = 0.0):
+        super().__init__(params, {"lr": lr, "momentum": momentum, "weight_decay": weight_decay})
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            lr, momentum, wd = group["lr"], group["momentum"], group["weight_decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if "momentum_buffer" not in state:
+                    state["momentum_buffer"] = torch.zeros_like(p)
+                buf = state["momentum_buffer"]
+                buf.mul_(momentum).add_(p.grad)
+                p.add_(buf + wd * p if wd else buf, alpha=-lr)
+
+
+OPTIMIZERS = ("ADAMW", "SGD")
+
+
+def build_optimizer(cfg, model: nn.Module) -> torch.optim.Optimizer:
+    """AdamW or SGD (SOLVER.OPTIMIZER, SGD with SOLVER.MOMENTUM) over the
+    trainable parameters, one group per (lr multiplier, weight decay); each
+    group carries its `lr_mult`. FrozenBN statistics are buffers and never
+    reach it."""
     s = cfg.SOLVER
-    if s.OPTIMIZER.upper() != "ADAMW":
-        raise NotImplementedError(f"the port trains with AdamW only, got {s.OPTIMIZER}")
+    kind = s.OPTIMIZER.upper()
+    if kind not in OPTIMIZERS:
+        raise ValueError(f"SOLVER.OPTIMIZER must be one of {OPTIMIZERS}, got {s.OPTIMIZER!r}")
     mults = {"backbone": s.BACKBONE_MULTIPLIER, "sem_seg_head": s.SEM_SEG_HEAD_MULTIPLIER,
              "matcher": s.PLANE_MATCHER_HEAD_MULTIPLIER, "default": 1.0}
     decays = {"regular": s.WEIGHT_DECAY, "norm": s.get("WEIGHT_DECAY_NORM", 0.0),
@@ -87,6 +123,8 @@ def build_optimizer(cfg, model: nn.Module) -> torch.optim.AdamW:
             groups.setdefault(key, []).append(p)
     param_groups = [{"params": ps, "lr": s.BASE_LR * m, "lr_mult": m, "weight_decay": wd}
                     for (m, wd), ps in groups.items()]
+    if kind == "SGD":
+        return SGD(param_groups, lr=s.BASE_LR, momentum=s.MOMENTUM)
     return torch.optim.AdamW(param_groups, lr=s.BASE_LR, betas=(0.9, 0.999), eps=1e-8)
 
 

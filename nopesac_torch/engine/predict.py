@@ -34,12 +34,10 @@ def build_model_from_cfg(cfg: CfgNode, device: DeviceLike = None,
     `fuse_tail` runs the backbone's identity-block tails through kernel B4 at
     inference (no config key: the JAX package has none either). The compute
     dtypes come from MODEL.COMPUTE_DTYPE, BACKBONE_TRAIN_DTYPE and
-    FPN_TRAIN_DTYPE, train-mode backbone checkpointing from MODEL.REMAT.
-    Sets the precision policy."""
+    FPN_TRAIN_DTYPE, train-mode backbone checkpointing from MODEL.REMAT,
+    the depth branch from MODEL.DEPTH_ON. Sets the precision policy."""
     dev = resolve_device(device)
     set_f32_parity()
-    if cfg.MODEL.DEPTH_ON:
-        raise NotImplementedError("MODEL.DEPTH_ON is not ported")
     h = cfg.MODEL.SEM_SEG_HEAD
     cam = cfg.MODEL.CAMERA_HEAD
     settings = TrainSettings(
@@ -67,6 +65,7 @@ def build_model_from_cfg(cfg: CfgNode, device: DeviceLike = None,
         num_queries=h.NUM_OBJECT_QUERIES,
         embedding_on=cfg.MODEL.EMBEDDING_ON,
         camera_on=cfg.MODEL.CAMERA_ON,
+        depth_on=bool(cfg.MODEL.DEPTH_ON),
         cam_rec_on=cam.CAM_REC_ON,
         cam_ref_on=cam.REFINE_ON,
         warp_plane_in_cam_ref_on=cam.WARP_PLANE_IN_CAM_REF_ON,
@@ -94,11 +93,17 @@ def build_model_from_cfg(cfg: CfgNode, device: DeviceLike = None,
 
 def make_eval_step(model: PlaneTRNopeSAC, out_h: int = 480, out_w: int = 640,
                    pixel_mean: Sequence[float] = (123.675, 116.280, 103.530),
-                   pixel_std: Sequence[float] = (58.395, 57.120, 57.375)) -> Callable:
-    """eval_step(image0, image1) on raw uint8 NHWC images [B, H, W, 3] ->
-    the inference dict. Normalisation is (f32(u8) - mean) * f32(1/std), with
-    the inverse std computed in numpy f32, the same IEEE ops as the JAX eval
-    step, so normalised inputs are bit-equal."""
+                   pixel_std: Sequence[float] = (58.395, 57.120, 57.375),
+                   with_gt_geo: bool = False, with_init_cam: bool = False) -> Callable:
+    """eval_step(image0, image1[, gt_geo][, init_cam]) on raw uint8 NHWC
+    images [B, H, W, 3] -> the inference dict. Normalisation is
+    (f32(u8) - mean) * f32(1/std), with the inverse std computed in numpy
+    f32, the same IEEE ops as the JAX eval step, so normalised inputs are
+    bit-equal. As the JAX step, `with_gt_geo` adds a gt_geo argument (the
+    GT-matcher ablation, TEST.POSE_REFINEMENT_WITH_GT_MATCHERS) and
+    `with_init_cam` an init_cam one (the SparsePlanes top-1 camera,
+    MODEL.CAMERA_HEAD.INFERENCE_SP_TOPCAM_ON), each a dict of tensors
+    (`PlaneTRNopeSAC.camera_inference`), moved to the model's device."""
     dev = next(model.parameters()).device
     mean = torch.from_numpy(np.asarray(pixel_mean, np.float32)).to(dev)
     inv_std = torch.from_numpy((1.0 / np.asarray(pixel_std, np.float32)).astype(np.float32)).to(dev)
@@ -110,9 +115,17 @@ def make_eval_step(model: PlaneTRNopeSAC, out_h: int = 480, out_w: int = 640,
         x = (img.to(dev).to(torch.float32) - mean) * inv_std
         return x.permute(0, 3, 1, 2).contiguous()
 
-    def eval_step(image0: torch.Tensor, image1: torch.Tensor):
+    def eval_step(image0: torch.Tensor, image1: torch.Tensor, *extra):
+        if len(extra) != with_gt_geo + with_init_cam:
+            raise TypeError(f"this eval step takes {with_gt_geo + with_init_cam} argument(s) "
+                            f"after the images (gt_geo {with_gt_geo}, init_cam "
+                            f"{with_init_cam}), got {len(extra)}")
+        extra = [{k: v.to(dev) for k, v in d.items()} for d in extra]
+        gt_geo = extra.pop(0) if with_gt_geo else None
+        init_cam = extra.pop(0) if with_init_cam else None
         with torch.inference_mode():
-            return model.inference(norm(image0), norm(image1), out_h=out_h, out_w=out_w)
+            return model.inference(norm(image0), norm(image1), out_h=out_h, out_w=out_w,
+                                   gt_geo=gt_geo, init_cam=init_cam)
 
     return eval_step
 

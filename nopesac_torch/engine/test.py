@@ -18,7 +18,22 @@ OUTPUT_DIR (`last_checkpoint`) takes MODEL.WEIGHTS' place when there is one.
 With N ranks on each of M machines (`parallel/dist.py:launch`, N 1 by
 default, at most the visible cards) each rank evaluates its strided slice
 of the split and rank 0 gathers the predictions, writes the artifacts and
-prints the line. The GT-matcher / SP-top-camera ablations are not ported.
+prints the line.
+
+The ablations of pose refinement, as in the JAX package's `Trainer.test`:
+  * TEST.POSE_REFINEMENT_WITH_GT_MATCHERS: the refinement runs on the GT
+    plane correspondences (`gt_geo_from_samples`); with
+    TEST.POSE_REFINEMENT_WITH_GT_NOISE_MATCHERS the GT planes get Gaussian
+    noise (`perturb_planes`, ..._OFFSET_SCALE metres and ..._NORMAL_SCALE
+    degrees), drawn from one generator seeded SEED (0 when negative) per
+    `test()` call, pair by pair and view 0 then view 1 over the padded
+    batches. Across ranks each rank draws its own stream from that seed over
+    its slice, so N ranks' noisy planes are not one process's;
+  * MODEL.CAMERA_HEAD.INFERENCE_SP_TOPCAM_ON: each pair's initial pose is
+    looked up in the SparsePlanes top-1 pickle at INFERENCE_SP_TOPCAM_PATH by
+    "<image_id0>-<image_id1>" and the PixelCameraHead does not run; it
+    needs CAM_REC_ON.
+MODEL.DEPTH_ON adds the depth maps, and the evaluator `depth_l1_dist`.
 """
 from __future__ import annotations
 
@@ -26,10 +41,11 @@ import argparse
 import json
 import logging
 import os
+import pickle
 import random
 import time
 from collections import OrderedDict
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -43,6 +59,7 @@ from ..evaluation.postprocess import postprocess_batch
 from ..models.nopesac import PlaneTRNopeSAC
 from ..parallel.dist import barrier, is_main_process, launch, rank, world_size
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.np_geometry import rotmat_from_euler_deg
 from .checkpoint import Checkpointer, load_weights
 from .predict import build_model_from_cfg, make_eval_step
 
@@ -80,6 +97,73 @@ def _numpy(tree):
     return tree.numpy()
 
 
+def perturb_planes(params: np.ndarray, rng: np.random.Generator, scale_offset: float,
+                   scale_normal_deg: float) -> np.ndarray:
+    """The GT-matcher noise ablation on plane parameters [N, 3] (n * d; zero
+    rows stay zero), as the JAX package draws it (camera_head.py:1233-1272):
+    the normal rotated by Euler angles ~ N(0, scale_normal_deg) degrees [N, 3],
+    then the offset += N(0, scale_offset) [N, 1]."""
+    n = params.shape[0]
+    offset = np.linalg.norm(params, axis=-1, keepdims=True)  # [N, 1]
+    valid = offset[:, 0] > 1e-8
+    normal = params / np.maximum(offset, 1e-8)
+    ang = rng.normal(0.0, scale_normal_deg, size=(n, 3)).astype(np.float32)
+    rot = rotmat_from_euler_deg(ang[:, 0], ang[:, 1], ang[:, 2])  # [N, 3, 3]
+    normal = np.einsum("nij,nj->ni", rot, normal)
+    normal /= np.maximum(np.linalg.norm(normal, axis=-1, keepdims=True), 1e-8)
+    offset = offset + rng.normal(0.0, scale_offset, size=(n, 1)).astype(np.float32)
+    out = (offset * normal).astype(np.float32)
+    out[~valid] = 0.0
+    return out
+
+
+def gt_geo_from_samples(chunk: Sequence[dict], samples: Sequence[dict], nq: int,
+                        noise_rng: Optional[np.random.Generator] = None,
+                        scale_offset: float = 0.1,
+                        scale_normal_deg: float = 10.0) -> Dict[str, np.ndarray]:
+    """The GT-matcher inputs of a batch (`PlaneTRNopeSAC.camera_inference`'s
+    gt_geo) on the host: each view's annotated plane parameters zero-padded
+    to [B, nq, 3] (camera_head.py:1205-1219), perturbed with `noise_rng`
+    pair by pair, view 0 then view 1, and the mapper's correspondences."""
+    bsz = len(chunk)
+    params = {v: np.zeros((bsz, nq, 3), np.float32) for v in ("0", "1")}
+    for i, pair in enumerate(chunk):
+        for v in ("0", "1"):
+            planes = [ann["plane"] for ann in pair[v].get("annotations", [])][:nq]
+            if planes:
+                arr = np.asarray(planes, np.float32)
+                if noise_rng is not None:
+                    arr = perturb_planes(arr, noise_rng, scale_offset, scale_normal_deg)
+                params[v][i, :len(planes)] = arr
+    return {"params0": params["0"], "params1": params["1"],
+            **{k: np.stack([s[k] for s in samples])
+               for k in ("corr_idx1", "corr_idx2", "corr_valid")}}
+
+
+def load_sp_topcam(cfg: CfgNode) -> Optional[dict]:
+    """The SparsePlanes top-1 cameras of MODEL.CAMERA_HEAD.INFERENCE_SP_TOPCAM_PATH
+    ({"<image_id0>-<image_id1>": {"position", "rotation"}}) when
+    INFERENCE_SP_TOPCAM_ON, else None; it needs CAM_REC_ON
+    (camera_head.py:469)."""
+    cam = cfg.MODEL.CAMERA_HEAD
+    if not cam.INFERENCE_SP_TOPCAM_ON:
+        return None
+    if not cam.CAM_REC_ON:
+        raise ValueError("MODEL.CAMERA_HEAD.INFERENCE_SP_TOPCAM_ON needs CAMERA_HEAD.CAM_REC_ON "
+                         "(reference camera_head.py:469)")
+    logger.warning("Note: using top1 cam")
+    with open(cam.INFERENCE_SP_TOPCAM_PATH, "rb") as f:
+        return pickle.load(f)
+
+
+def sp_topcam_of(sp_topcam: dict, chunk: Sequence[dict]) -> Dict[str, np.ndarray]:
+    """The init_cam of a batch: each pair's pose in the pickle (a missing
+    pair raises KeyError, as the reference's dict lookup does)."""
+    cams = [sp_topcam[d["0"]["image_id"] + "-" + d["1"]["image_id"]] for d in chunk]
+    return {"tran": np.stack([np.asarray(c["position"], np.float32).reshape(3) for c in cams]),
+            "rot": np.stack([np.asarray(c["rotation"], np.float32).reshape(4) for c in cams])}
+
+
 class EvalRunner:
     """Evaluation of a model over a test split, as `Trainer.test` does it."""
 
@@ -95,26 +179,37 @@ class EvalRunner:
         pairs, and `last_eval_stats` counts all pairs over rank 0's wall up
         to the moment every rank is done."""
         cfg = self.cfg
-        if cfg.TEST.POSE_REFINEMENT_WITH_GT_MATCHERS:
-            raise NotImplementedError("TEST.POSE_REFINEMENT_WITH_GT_MATCHERS is not ported")
-        if cfg.MODEL.CAMERA_HEAD.INFERENCE_SP_TOPCAM_ON:
-            raise NotImplementedError("MODEL.CAMERA_HEAD.INFERENCE_SP_TOPCAM_ON is not ported")
         test_name = cfg.DATASETS.TEST[0]
         if dataset_list is None:
             dataset_list = DatasetCatalog.get(test_name)
         world = world_size()
         n_pairs = len(dataset_list)
         h, w = cfg.INPUT.IMAGE_SIZE
-        mapper = PairMapper(cfg.MODEL.SEM_SEG_HEAD.NUM_OBJECT_QUERIES, (h, w),
-                            cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD, is_train=False,
+        nq = cfg.MODEL.SEM_SEG_HEAD.NUM_OBJECT_QUERIES
+        mapper = PairMapper(nq, (h, w), cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD, is_train=False,
                             eval_gt_box=bool(cfg.TEST.EVAL_GT_BOX),
-                            root_dir=cfg.DATASETS.ROOT_DIR)
+                            root_dir=cfg.DATASETS.ROOT_DIR,
+                            dataset_kind="scannet" if "scannet" in test_name else "mp3d",
+                            camera_cls_on=cfg.MODEL.CAMERA_HEAD.CLASSIFICATION_ON)
+        # the ablations of pose refinement (camera_head.py:419-431, 520-547)
+        gt_matcher = bool(cfg.TEST.POSE_REFINEMENT_WITH_GT_MATCHERS)
+        noise_rng = None
+        if gt_matcher:
+            logger.warning("using GT plane matches for pose refinement")
+            if cfg.TEST.POSE_REFINEMENT_WITH_GT_NOISE_MATCHERS:
+                logger.warning("...with Gaussian noise on the GT planes")
+                noise_rng = np.random.default_rng(cfg.SEED if cfg.SEED >= 0 else 0)
+        sp_topcam = load_sp_topcam(cfg)
         evaluator = MP3DEvaluator(test_name, cfg, dataset_list=dataset_list, distributed=world > 1)
         dataset_list = dataset_list[rank()::world]
-        eval_step = make_eval_step(self.model, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
+        eval_step = make_eval_step(self.model, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD,
+                                   with_gt_geo=gt_matcher, with_init_cam=sp_topcam is not None)
         dev = next(self.model.parameters()).device
         bs = int(cfg.TEST.IMS_PER_BATCH)
         debug_camera = bool(cfg.DEBUG_CAMERA_ON)
+
+        def to_dev(arrays):
+            return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
 
         def drain(pending):
             chunk, metas, out, done = pending
@@ -137,7 +232,16 @@ class EvalRunner:
             samples += [samples[-1]] * (bs - n_real)
             images = [torch.from_numpy(np.stack([s[f"image{i}"] for s in samples])).to(dev)
                       for i in ("0", "1")]
-            out = _fetch(eval_step(*images))
+            pad_chunk = list(chunk) + [chunk[-1]] * (bs - n_real)
+            extra = []
+            if gt_matcher:
+                extra.append(to_dev(gt_geo_from_samples(
+                    pad_chunk, samples, nq, noise_rng=noise_rng,
+                    scale_offset=cfg.TEST.POSE_REFINEMENT_WITH_GT_NOISE_MATCHERS_OFFSET_SCALE,
+                    scale_normal_deg=cfg.TEST.POSE_REFINEMENT_WITH_GT_NOISE_MATCHERS_NORMAL_SCALE)))
+            if sp_topcam is not None:
+                extra.append(to_dev(sp_topcam_of(sp_topcam, pad_chunk)))
+            out = _fetch(eval_step(*images, *extra))
             done = None
             if dev.type == "cuda":
                 done = torch.cuda.Event()

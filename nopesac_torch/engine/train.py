@@ -40,7 +40,7 @@ from .predict import build_model_from_cfg
 def build_train_model(cfg: CfgNode, device: DeviceLike = None,
                       seed: Optional[int] = None) -> PlaneTRNopeSAC:
     """The model of a config in train mode on `device` (default `cuda`). Its
-    parameters and so the AdamW state stay f32 under every dtype policy: the
+    parameters and so the optimizer state stay f32 under every dtype policy: the
     layers cast their weights, and autograd sends f32 gradients back to
     them."""
     return build_model_from_cfg(cfg, device=device, seed=seed).train()
@@ -48,7 +48,8 @@ def build_train_model(cfg: CfgNode, device: DeviceLike = None,
 
 class TrainStep:
     """One optimisation step per call: train_forward, backward, the global
-    gradient norm, the non-finite skip guard, clipping and AdamW.
+    gradient norm, the non-finite skip guard, clipping and the optimizer
+    (AdamW, or SGD with momentum: SOLVER.OPTIMIZER).
 
     When the total loss or the gradient norm is not finite the step leaves
     the parameters and the optimizer state as they were and puts back the BN
@@ -60,7 +61,7 @@ class TrainStep:
     Across ranks (a process group of more than one) each rank backpropagates
     its share of the global batch's loss (`models/nopesac.py:train_forward`),
     and the gradients are summed over the ranks (`reduce_gradients`), so the
-    gradient norm, the clipping and the AdamW step see the gradient of the
+    gradient norm, the clipping and the optimizer step see the gradient of the
     global loss, the same on every rank. The logged losses and the skip
     guard's total are the global ones, the shares summed over the ranks.
     The random streams differ from rank to rank, as in the reference's
@@ -87,7 +88,7 @@ class TrainStep:
         self.updates = 0  # applied updates: the schedule's count
 
     def state_dict(self) -> Dict:
-        """What a resume needs besides the model: the AdamW state, the two
+        """What a resume needs besides the model: the optimizer state, the two
         counts and the generator's state. The generator runs on across
         steps (the JAX step folds the step into a fixed key instead), so a
         resume repeats the uninterrupted run's draws only with it. Across
@@ -138,7 +139,7 @@ class TrainStep:
     def apply_gradients(self, finite_total=True) -> Tuple[torch.Tensor, bool]:
         """The update from the parameters' .grad (None counts as zeros):
         the global gradient norm, then, unless it or `finite_total` is not
-        finite, clipping, the scheduled lr and one AdamW step. Returns the
+        finite, clipping, the scheduled lr and one optimizer step. Returns the
         norm (before clipping) and whether the update was applied."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
         grad_norm = torch.linalg.vector_norm(torch.stack([g.norm() for g in grads]))

@@ -36,7 +36,7 @@ stream of DATASETS.TRAIN[0]. The loop follows the JAX `Trainer.train`:
     the hook is logged and training goes on; `last_eval_error` keeps it;
   * at the end, precise-BN with the last periodic checkpoint rewritten, and
     OUTPUT_DIR/model_final.pth.
-`--resume` restores the latest checkpoint (model, AdamW state, the step and
+`--resume` restores the latest checkpoint (model, optimizer state, the step and
 update counts, the generator) and continues from its step with a fresh
 loader iterator, as the JAX `Trainer` does: the batches after a resume are
 not the ones an uninterrupted run would have drawn. Without a checkpoint it
@@ -127,8 +127,6 @@ class Trainer:
                  device: DeviceLike = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        if cfg.MODEL.CAMERA_HEAD.CLASSIFICATION_ON:
-            raise NotImplementedError("MODEL.CAMERA_HEAD.CLASSIFICATION_ON is not ported")
         os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
         if is_main_process():
             with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
@@ -161,7 +159,8 @@ class Trainer:
         mapper = PairMapper(cfg.MODEL.SEM_SEG_HEAD.NUM_OBJECT_QUERIES, tuple(cfg.INPUT.IMAGE_SIZE),
                             cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD, is_train=True,
                             root_dir=cfg.DATASETS.ROOT_DIR, dataset_kind=dataset_kind(name),
-                            augmentation=cfg.DATALOADER.AUGMENTATION, seed=cfg.SEED)
+                            augmentation=cfg.DATALOADER.AUGMENTATION, seed=cfg.SEED,
+                            camera_cls_on=cfg.MODEL.CAMERA_HEAD.CLASSIFICATION_ON)
         return PairLoader(self._train_dataset or DatasetCatalog.get(name), mapper,
                           batch_size=cfg.SOLVER.IMS_PER_BATCH // world, shuffle=True,
                           drop_last=True, seed=cfg.SEED, num_shards=world, shard_id=rank(),

@@ -8,6 +8,8 @@ or with both views stacked (view 0 first):
   gt_params [B, NG, 3], gt_centers [B, NG, 2], gt_pixel_centers [B, H, W, 2],
   depth [B, H, W], k_inv_dot_xy1 [B, 3, H, W].
 The mask focal + dice terms go through kernel B3 (`ops/mask_loss.py`).
+With MODEL.DEPTH_ON, `depth_loss_siamese` adds the masked L1 of the depth
+branch.
 
 Across ranks every loss is this rank's share of the global batch's loss:
 its own numerators over the normalisers of every rank (`all_reduce_sum`),
@@ -214,3 +216,21 @@ def detection_losses_siamese(outputs: Dict, targets: Dict, match: torch.Tensor,
     if not aux:
         losses["loss_q"] = q_loss_segmap(src_p, match, targets)
     return losses
+
+
+def depth_loss_siamese(outputs: Dict, targets: Dict) -> torch.Tensor:
+    """Masked L1 depth of both views run as one 2B batch (view 0 first), as
+    the JAX package's `depth_loss_siamese`: the prediction
+    ([2B, 1, h, w]) resized bilinearly (half-pixel centres, edge taps
+    clamped, as the JAX package's bilinear `image.resize` upsamples) to the
+    GT size, |pred - gt|
+    summed where gt > 1e-4, each view over its own count (at least 1), then
+    the two averaged. Across ranks the counts are the global batch's."""
+    gt = targets["depth"]  # [2B, H, W]
+    b = gt.shape[0] // 2
+    pred = F.interpolate(outputs["pixel_depth"], size=gt.shape[-2:], mode="bilinear",
+                         align_corners=False)[:, 0]
+    mask = (gt > 1e-4).to(pred.dtype)
+    err = (torch.abs(pred - gt) * mask).reshape(2, b, -1).sum(dim=(1, 2))
+    (cnt,) = all_reduce_sum([mask.to(torch.float32).reshape(2, b, -1).sum(dim=(1, 2))])
+    return (err / torch.clamp_min(cnt, 1.0)).mean()

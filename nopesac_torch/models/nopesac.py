@@ -5,8 +5,15 @@
 `inference` takes normalised NCHW images and returns the same dict (keys,
 shapes and dtypes) as the JAX `PlaneTRNopeSAC.inference`. `train_forward`
 takes a collated training batch (NHWC images, as the JAX package's) and
-returns the same dict of weighted losses as the JAX `train_forward`. Left
-out: the `gt_geo` / `init_cam` ablations and the depth branch.
+returns the same dict of weighted losses as the JAX `train_forward`.
+
+The optional branches of the JAX model: `depth_on` (MODEL.DEPTH_ON) adds the
+plane head's depth branch, `loss_depth_pixel` in training and
+`depth0`/`depth1` at inference; `inference` and `camera_inference` take the
+pose-refinement ablations `gt_geo` (TEST.POSE_REFINEMENT_WITH_GT_MATCHERS:
+the refinement's matched-plane sequence from GT correspondences) and
+`init_cam` (MODEL.CAMERA_HEAD.INFERENCE_SP_TOPCAM_ON: a given initial pose
+in place of the PixelCameraHead's).
 
 `dtype` (MODEL.COMPUTE_DTYPE), `backbone_train_dtype` and `fpn_train_dtype`
 place each part in its dtype as the JAX model does (the backbone, the plane
@@ -26,7 +33,7 @@ from ..core.assignment import mutual_max_assignment
 from ..core.geometry import canonicalize_quat_sign, normalize
 from ..data.packing import unpack_targets
 from ..losses import camera_losses as CL
-from ..losses.criterion import detection_losses_siamese, match_planes_multi
+from ..losses.criterion import depth_loss_siamese, detection_losses_siamese, match_planes_multi
 from ..losses.matching import build_pred_corr_matrix, intersect_with_valid, matching_nll_loss
 from ..ops.select import fused_select_maps
 from ..parallel.dist import world_size
@@ -85,7 +92,8 @@ class PlaneTRNopeSAC(nn.Module):
     """Siamese plane detection + matching + NOPE-SAC pose estimation."""
 
     def __init__(self, image_size=(480, 640), num_queries: int = 50, embedding_on: bool = True,
-                 camera_on: bool = True, cam_rec_on: bool = True, cam_ref_on: bool = True,
+                 camera_on: bool = True, depth_on: bool = False, cam_rec_on: bool = True,
+                 cam_ref_on: bool = True,
                  warp_plane_in_cam_ref_on: bool = True, sinkhorn_iterations: int = 200,
                  offset_multiplier: float = 4.0, normal_multiplier: float = 8.0,
                  plane_score_threshold: float = 0.6, mask_prob_threshold: float = 0.5,
@@ -105,6 +113,7 @@ class PlaneTRNopeSAC(nn.Module):
         self.num_queries = num_queries
         self.embedding_on = embedding_on
         self.camera_on = camera_on
+        self.depth_on = depth_on
         self.cam_rec_on = cam_rec_on
         self.cam_ref_on = cam_ref_on
         self.plane_score_threshold = plane_score_threshold
@@ -116,7 +125,8 @@ class PlaneTRNopeSAC(nn.Module):
         self.backbone = ResNet(fuse_tail=fuse_tail, dtype=dtype, train_dtype=backbone_train_dtype,
                                remat=remat)
         self.sem_seg_head = PlaneTRHead(num_queries=num_queries, dropout=transformer_dropout,
-                                        dtype=dtype, fpn_train_dtype=fpn_train_dtype)
+                                        dtype=dtype, fpn_train_dtype=fpn_train_dtype,
+                                        depth_on=depth_on)
         if embedding_on:
             self.matching_head = MatchingHead(offset_multiplier, normal_multiplier,
                                               sinkhorn_iterations)
@@ -179,7 +189,7 @@ class PlaneTRNopeSAC(nn.Module):
             "loss_ce": 1.0, "loss_param_l1": st.param_weight_l1,
             "loss_param_cos": st.param_weight_cos, "loss_q": st.param_weight_q,
             "loss_center_ins": st.center_ins_weight, "loss_center_pixel": 1.0,
-            "loss_mask": st.mask_weight, "loss_dice": st.dice_weight,
+            "loss_depth_pixel": 1.0, "loss_mask": st.mask_weight, "loss_dice": st.dice_weight,
         }
         images = torch.cat([batch["image0"], batch["image1"]]).permute(0, 3, 1, 2).contiguous()
         targets = {k: torch.cat([t0[k], t1[k]]) for k in t0}
@@ -191,6 +201,8 @@ class PlaneTRNopeSAC(nn.Module):
         match = matches[0]
         if st.loss_detection_on:
             raw = detection_losses_siamese(out, targets, match, eos_coef=st.no_object_weight)
+            if self.depth_on:
+                raw["loss_depth_pixel"] = depth_loss_siamese(out, targets)
             losses.update({k: v * loss_weights[k] for k, v in raw.items()})
             for i, (aux, match_aux) in enumerate(zip(aux_list, matches[1:])):
                 raw = detection_losses_siamese(aux, targets, match_aux,
@@ -341,39 +353,74 @@ class PlaneTRNopeSAC(nn.Module):
         return {"valid": final_valid, "score": score, "params": params,
                 "seg_gated": seg_gated, "centers": centers}
 
-    def inference(self, images0, images1, out_h: int = 480, out_w: int = 640):
-        """Full inference on normalised NCHW images [B, 3, H, W] of each view."""
+    def inference(self, images0, images1, out_h: int = 480, out_w: int = 640,
+                  gt_geo: Optional[Dict[str, torch.Tensor]] = None,
+                  init_cam: Optional[Dict[str, torch.Tensor]] = None):
+        """Full inference on normalised NCHW images [B, 3, H, W] of each view.
+        `gt_geo` and `init_cam`: the ablations of `camera_inference`."""
         feats_cat, out_cat, qf_cat = self.detect(torch.cat([images0, images1], dim=0))
-        return self.inference_from_detections(feats_cat, out_cat, qf_cat, out_h, out_w)
+        return self.inference_from_detections(feats_cat, out_cat, qf_cat, out_h, out_w,
+                                              gt_geo=gt_geo, init_cam=init_cam)
 
-    def inference_from_detections(self, feats_cat, out_cat, qf_cat, out_h: int, out_w: int):
+    def inference_from_detections(self, feats_cat, out_cat, qf_cat, out_h: int, out_w: int,
+                                  gt_geo=None, init_cam=None):
         """The rest of `inference` on `detect`'s outputs for both views
-        stacked view 0 then view 1: select_planes, then camera_inference."""
+        stacked view 0 then view 1: select_planes, the depth maps with
+        depth_on, then camera_inference."""
         b = qf_cat.shape[0] // 2
         sel_cat = self.select_planes(out_cat, out_h, out_w)
         sel0, sel1 = _split(sel_cat, slice(None, b)), _split(sel_cat, slice(b, None))
         result = {"view0": sel0, "view1": sel1}
+        if self.depth_on:
+            # the head predicts depth at H/4 x W/4 and the evaluator compares
+            # it with the full-size GT map: f32, resized bilinearly as in the
+            # depth loss, NHWC [B, out_h, out_w, 1] as the JAX model returns it
+            depth = F.interpolate(out_cat["pixel_depth"].to(torch.float32), size=(out_h, out_w),
+                                  mode="bilinear", align_corners=False).permute(0, 2, 3, 1)
+            result["depth0"], result["depth1"] = depth[:b], depth[b:]
         if not self.camera_on:
             return result
         result.update(self.camera_inference(
             feats_cat, qf_cat[:b], qf_cat[b:], sel0["params"], sel1["params"],
-            sel0["valid"], sel1["valid"]))
+            sel0["valid"], sel1["valid"], gt_geo=gt_geo, init_cam=init_cam))
         return result
 
-    def camera_inference(self, feats_cat, qf0, qf1, params0, params1, valid0, valid1):
+    def camera_inference(self, feats_cat, qf0, qf1, params0, params1, valid0, valid1,
+                         gt_geo: Optional[Dict[str, torch.Tensor]] = None,
+                         init_cam: Optional[Dict[str, torch.Tensor]] = None):
         """Initial pose, AIM, matching, NOPE-SAC refinement, assignment
-        re-gating and the camera dict zoo."""
+        re-gating and the camera dict zoo.
+
+        gt_geo (the GT-matcher ablation): params0/params1 [B, N, 3] GT plane
+        parameters (zero-padded, perturbed by the caller for the noise
+        ablation), corr_idx1/corr_idx2 [B, M], corr_valid [B, M]; the
+        refinement's matched-plane sequence comes from these
+        correspondences, the matching and `assignment_beforeRef` stay the
+        prediction's.
+        init_cam (the SparsePlanes top-1 camera): tran [B, 3], rot [B, 4];
+        the pose, normalised and sign-canonical, replaces the
+        PixelCameraHead's, which does not run. It needs cam_rec_on: the AIM
+        heads give the refinement its pose features."""
         b = qf0.shape[0]
         head = self.camera_head
         dt, dev = head.compute_dtype(), qf0.device
+        if init_cam is not None and not self.cam_rec_on:
+            raise ValueError("init_cam (INFERENCE_SP_TOPCAM_ON) needs CAM_REC_ON: the given "
+                             "pose has no PixelCameraHead features, so the AIM heads must "
+                             "make them")
         cameras = {"camera_zero": {
             "tran": torch.zeros((b, 3), dtype=dt, device=dev),
             "rot": torch.tensor([[1.0, 0.0, 0.0, 0.0]], dtype=dt, device=dev).repeat(b, 1),
         }}
         result = {}
-        init = head.pixel_camera(feats_cat)
-        init_rot = canonicalize_quat_sign(init["rot"])
-        init_tran = init["tran"]
+        if init_cam is not None:
+            init = None
+            init_rot = canonicalize_quat_sign(normalize(init_cam["rot"].to(dt), eps=1e-12))
+            init_tran = init_cam["tran"].to(dt)
+        else:
+            init = head.pixel_camera(feats_cat)
+            init_rot = canonicalize_quat_sign(init["rot"])
+            init_tran = init["tran"]
         cameras["camera_init"] = {"tran": init_tran, "rot": init_rot}
 
         if self.cam_rec_on:
@@ -404,8 +451,14 @@ class PlaneTRNopeSAC(nn.Module):
             return result
 
         # ---- NOPE-SAC refinement
-        geo_local, seq_valid, num_matches = build_geo_sequence(
-            params0, params1, assignment, self.num_queries)
+        if gt_geo is not None:
+            geo_local, seq_valid, num_matches = build_gt_geo_sequence(
+                gt_geo["params0"], gt_geo["params1"], gt_geo["corr_idx1"], gt_geo["corr_idx2"],
+                gt_geo["corr_valid"])
+            geo_local = geo_local.to(dt)
+        else:
+            geo_local, seq_valid, num_matches = build_geo_sequence(
+                params0, params1, assignment, self.num_queries)
         geo_global = warp_geo_sequence(geo_local, base_tran, base_rot)
         sig_seq = compute_sig_seq(geo_local, base_tran, base_rot)
         ref = head.refine(base_tran_feat, base_rot_feat, base_tran, base_rot,

@@ -8,12 +8,14 @@
   * `top_down` FPN pixel decoder (laterals res2..res5 + encoder memory inject)
   * mask logits = einsum(plane_embedding, pixel_embedding)
   * plane/no-plane classifier, plane-param MLP, plane-center MLP + pixel map
+  * with `depth_on` (MODEL.DEPTH_ON), a second top-down decoder
+    `top_down_depth` and a 1x1 `depth` conv: per-pixel depth at H/4 x W/4
 
 Compute dtypes, as the JAX package's `PlaneTRHead(dtype, fpn_train_dtype)`:
 the input projection, the transformer, the query embeddings and every
 query-side head run in f32 under every policy (the input projection casts
-res5 to f32). The pixel path (the top-down decoder, pixel_embedding and
-pixel_plane_center) runs in `dtype` in eval mode and in `fpn_train_dtype`
+res5 to f32). The pixel path (the top-down decoder, pixel_embedding,
+pixel_plane_center, and the depth branch) runs in `dtype` in eval mode and in `fpn_train_dtype`
 in train mode. The mask einsum is f32: pixel_embedding's output is widened
 first.
 """
@@ -66,8 +68,9 @@ class PlaneTRHead(nn.Module):
                  enc_layers: int = 6, dec_layers: int = 6, num_classes: int = 1,
                  mask_dim: int = 256, channel: int = 256, dropout: float = 0.1,
                  dtype: torch.dtype = torch.float32,
-                 fpn_train_dtype: torch.dtype = torch.float32):
+                 fpn_train_dtype: torch.dtype = torch.float32, depth_on: bool = False):
         super().__init__()
+        self.depth_on = depth_on
         self.hidden_dim = hidden_dim
         self.input_proj = Conv2d(2048, hidden_dim, 1)
         self.query_embed = nn.Embedding(num_queries, hidden_dim)
@@ -80,8 +83,13 @@ class PlaneTRHead(nn.Module):
         self.plane_param = MLP(hidden_dim, hidden_dim, 3, 3)
         self.plane_center = MLP(hidden_dim, hidden_dim, 2, 3)
         self.pixel_plane_center = Conv2d(channel, 2, 1)
-        for pixel_path in (self.top_down, self.pixel_embedding, self.pixel_plane_center):
-            set_compute_dtype(pixel_path, dtype, fpn_train_dtype)
+        pixel_path = [self.top_down, self.pixel_embedding, self.pixel_plane_center]
+        if depth_on:
+            self.top_down_depth = TopDown(channel=channel, m_dim=hidden_dim)
+            self.depth = Conv2d(channel, 1, 1)
+            pixel_path += [self.top_down_depth, self.depth]
+        for module in pixel_path:
+            set_compute_dtype(module, dtype, fpn_train_dtype)
         self._pos_cache: Dict[tuple, torch.Tensor] = {}
 
     def _pos(self, hc: int, wc: int, device) -> torch.Tensor:
@@ -93,7 +101,8 @@ class PlaneTRHead(nn.Module):
     def forward(self, features: Dict[str, torch.Tensor], gen=None):
         """Returns (outputs, query features [B, Q, C]). outputs: pred_logits
         [B,Q,2], pred_mask_logits [B,Q,H/4,W/4], pred_params [B,Q,3],
-        pred_centers [B,Q,2], pixel_centers [B,2,H/4,W/4]; in training also
+        pred_centers [B,Q,2], pixel_centers [B,2,H/4,W/4], with depth_on
+        pixel_depth [B,1,H/4,W/4] in the pixel path's dtype; in training also
         aux_outputs, a list of the first three keys' dicts of the earlier
         supervised decoder layers. `gen` drives the transformer's dropout."""
         c1, c2, c3, c4 = (features["res2"], features["res3"], features["res4"],
@@ -119,6 +128,8 @@ class PlaneTRHead(nn.Module):
                  "pred_centers": torch.sigmoid(self.plane_center(hs))}
         out = {k: v[-1] for k, v in heads.items()}
         out["pixel_centers"] = torch.sigmoid(self.pixel_plane_center(p_context))
+        if self.depth_on:
+            out["pixel_depth"] = self.depth(self.top_down_depth(c1, c2, c3, c4, memory_map))
         if self.training:
             out["aux_outputs"] = [{k: v[i] for k, v in heads.items()}
                                   for i in range(hs.shape[0] - 1)]

@@ -130,11 +130,16 @@ def state_dict_from_jax(params: Mapping, batch_stats: Mapping | None = None,
                     if norm in lay:
                         layer_norm(f"{dst}.{norm}", lay[norm], i)
             layer_norm(f"{hp}.{tname}.norm", ph[jname]["norm"])
-        td, td_bs = ph["top_down"], ph_bs.get("top_down", {})
-        for name in ("c1_conv", "c2_conv", "c3_conv", "c4_conv", "up_conv1", "up_conv2",
-                     "up_conv3"):
-            conv_bn(f"{hp}.top_down.{name}", td[name], td_bs.get(name))
-        conv_bn(f"{hp}.top_down.m_conv_dict.m4", td["m4_conv"], td_bs.get("m4_conv"))
+        for tdn in ("top_down", "top_down_depth"):  # top_down_depth with MODEL.DEPTH_ON
+            if tdn not in ph:
+                continue
+            td, td_bs = ph[tdn], ph_bs.get(tdn, {})
+            for name in ("c1_conv", "c2_conv", "c3_conv", "c4_conv", "up_conv1", "up_conv2",
+                         "up_conv3"):
+                conv_bn(f"{hp}.{tdn}.{name}", td[name], td_bs.get(name))
+            conv_bn(f"{hp}.{tdn}.m_conv_dict.m4", td["m4_conv"], td_bs.get("m4_conv"))
+        if "depth" in ph:
+            conv(f"{hp}.depth", ph["depth"])
         for name in ("plane_embedding", "plane_param", "plane_center"):
             mlp(f"{hp}.{name}", ph[name])
         dense(f"{hp}.plane_prob", ph["plane_prob"])

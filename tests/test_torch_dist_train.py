@@ -22,6 +22,16 @@ two-rank part, with a `file://` rendezvous under tmp_path:
   (c) a non-finite loss on rank 1 only skips the step on both ranks;
   (d) precise-BN on two ranks against one process over the union of the
       batches, rank 1 holding one batch more.
+A second launch (`depth_rank`) holds a MODEL.DEPTH_ON step to a second
+jitted JAX value-and-grad, as (a): every loss, loss_depth_pixel among them,
+whose per-view counts of depth pixels are the global batch's (rank 0's
+pairs have one plane per view, so their views hold far fewer depth pixels
+than rank 1's), the gradients and the new BN statistics, the depth
+branch's included; each rank's own depth loss, averaged, misses JAX. The
+step's all-reduces are counted: 94 without the depth branch (the gradient
+buffer, 26 + 26 synced-BN moments forward and backward, the normalisers
+and batch means, the logged losses), 17 more with it (its 8 BN layers
+forward and backward, and the depth loss's per-view counts).
 """
 
 import shutil
@@ -48,7 +58,7 @@ from nopesac_torch.utils.weights import state_dict_from_jax
 from test_torch_train import (BN_TOL, GRAD_REL, LOSS_ABS, LOSS_REL, MATCH_GAP, MODULES,
                               _cfgs, _perturb_stats, _second_best_gap, _separate_queries)
 from torch_cpu import torch_threads  # noqa: F401  (CPU thread budget)
-from torch_dist_worker import bn_state, rank_part, smoke_cfg, train_state, train_rank
+from torch_dist_worker import bn_state, depth_rank, rank_part, smoke_cfg, train_state, train_rank
 
 H, W = 96, 128
 WORLD = 2
@@ -112,11 +122,14 @@ def _rel(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    root = tmp_path_factory.mktemp("dist_train")
+def jax_global_step(depth_on=False):
+    """One jitted JAX value-and-grad of train_forward on the global batch
+    of SEED, from the conditioned init: (losses, grads, new BN statistics,
+    match costs, matches), the numpy batch, the AIM poses as torch tensors
+    and the init's variables."""
     jcfg, _ = _cfgs()
     jcfg.SOLVER.IMS_PER_BATCH = len(PLANES)
+    jcfg.MODEL.DEPTH_ON = depth_on
     jmodel = jax_build_model(jcfg)
     np_batch = _numpy_batch(SEED)
     jbatch = jax.tree_util.tree_map(jnp.asarray, np_batch)
@@ -158,10 +171,17 @@ def runs(tmp_path_factory):
     r1, r2 = jax.random.split(aim_key)
     aim = [torch.from_numpy(np.asarray(JCL.rand_aim_rot(r1, n_aim)).copy()),
            torch.from_numpy(np.asarray(JCL.rand_aim_trans(r2, n_aim)).copy())]
+    return ref, np_batch, aim, variables
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    root = tmp_path_factory.mktemp("dist_train")
+    ref, np_batch, aim, variables = jax_global_step()
     sd = state_dict_from_jax(variables["params"], variables["batch_stats"], image_size=(H, W))
     ref_grads = state_dict_from_jax(ref[1], None, image_size=(H, W))
     ref_bn = state_dict_from_jax(variables["params"], ref[2], image_size=(H, W))
-    del jmodel, variables
+    del variables
 
     bn_batches = [_numpy_batch(10), _numpy_batch(20)]
     spec = {"sd": sd, "batch": np_batch, "aim": aim, "opts": OPTS, "bn_batches": bn_batches}
@@ -211,6 +231,8 @@ def test_fixture_match_is_unique_and_ranks_differ(runs):
     # the batch shows the defect: unequal plane counts, unequal brightness
     assert n_gt[0] == 1 and n_gt[2] == 6
     assert [r["rank"] for r in runs["ranks"]] == [0, 1] and runs["ranks"][0]["world"] == WORLD
+    # the step's collectives (PERF.md §3)
+    assert [r["all_reduces"] for r in runs["ranks"]] == [94] * WORLD
 
 
 def test_two_rank_match_equals_jax(runs):
@@ -293,3 +315,57 @@ def test_two_rank_precise_bn_equals_one_process_over_the_union(runs):
         assert torch.equal(ranks[0]["precise_bn"][key], ranks[1]["precise_bn"][key]), key
         assert not torch.equal(want, runs["sd"][key]), key
         torch.testing.assert_close(ranks[0]["precise_bn"][key], want, rtol=BN_TOL, atol=BN_TOL)
+
+
+DEPTH_OPTS = OPTS + ["MODEL.DEPTH_ON", "True"]
+
+
+@pytest.fixture(scope="module")
+def depth_runs(tmp_path_factory):
+    root = tmp_path_factory.mktemp("dist_depth")
+    ref, np_batch, aim, variables = jax_global_step(depth_on=True)
+    sd = state_dict_from_jax(variables["params"], variables["batch_stats"], image_size=(H, W))
+    ref_grads = state_dict_from_jax(ref[1], None, image_size=(H, W))
+    ref_bn = state_dict_from_jax(variables["params"], ref[2], image_size=(H, W))
+    spec_path = str(root / "spec.pt")
+    torch.save({"sd": sd, "batch": np_batch, "aim": aim, "opts": DEPTH_OPTS}, spec_path)
+    ranks = launch(depth_rank, WORLD, device="cpu", dist_url=f"file://{root}/rendezvous",
+                   args=(spec_path,), timeout_s=600)
+    shutil.rmtree(root)
+    cfg = smoke_cfg(DEPTH_OPTS)
+    batch = batch_to_device(np_batch, "cpu")
+    naive = []
+    for r in range(WORLD):  # each rank's own depth loss (a plain DDP wrap)
+        model = build_train_model(cfg, device="cpu")
+        model.load_state_dict(sd, strict=True)
+        with torch.no_grad():
+            losses = model.train_forward(rank_part(batch, r, WORLD), None,
+                                         *[rank_part(a, r, WORLD) for a in aim])
+        naive.append(float(losses["loss_depth_pixel"]))
+    yield dict(ref=ref, ref_grads=ref_grads, ref_bn=ref_bn, ranks=ranks, naive=naive, sd=sd)
+
+
+def test_two_rank_depth_step_equals_jax(depth_runs):
+    ref = {k: float(v) for k, v in depth_runs["ref"][0].items()}
+    ranks = depth_runs["ranks"]
+    assert ranks[0]["losses"] == ranks[1]["losses"]
+    assert ranks[0]["grads_digest"] == ranks[1]["grads_digest"]
+    assert [r["all_reduces"] for r in ranks] == [94 + 17] * WORLD
+    got = ranks[0]["losses"]
+    assert "loss_depth_pixel" in ref and sorted(got) == sorted(ref)
+    bad = {k: (got[k], r) for k, r in ref.items() if not abs(got[k] - r) <= _loss_tol(r)}
+    assert not bad, bad
+    r = ref["loss_depth_pixel"]
+    assert abs(np.mean(depth_runs["naive"]) - r) > 10 * _loss_tol(r), (depth_runs["naive"], r)
+    grads, ref_grads = ranks[0]["grads"], depth_runs["ref_grads"]
+    assert any(n.startswith("sem_seg_head.top_down_depth.") for n in grads)
+    for module in MODULES:
+        names = [n for n in grads if n.startswith(module)]
+        rel = _rel(np.concatenate([grads[n].numpy().ravel() for n in names]),
+                   np.concatenate([ref_grads[n].numpy().ravel() for n in names]))
+        assert rel <= GRAD_REL, (module, rel)
+    want = depth_runs["ref_bn"]
+    assert any(k.startswith("sem_seg_head.top_down_depth.") for k in ranks[0]["bn"])
+    for key, got_bn in ranks[0]["bn"].items():
+        assert torch.equal(got_bn, ranks[1]["bn"][key]), key
+        torch.testing.assert_close(got_bn, want[key], rtol=BN_TOL, atol=BN_TOL)

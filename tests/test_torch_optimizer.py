@@ -1,4 +1,4 @@
-"""The port's AdamW against the JAX package's optax chain.
+"""The port's AdamW and SGD against the JAX package's optax chains.
 
 The JAX parameter tree of the smoke model at 96x128 (shapes from
 `jax.eval_shape`, so nothing is compiled but the optax update) is filled with
@@ -6,7 +6,10 @@ seeded values and carried into the port with `state_dict_from_jax`. The same
 seeded gradients then go through four steps of `build_optimizer` +
 `apply_freeze` and of the port's `TrainStep.apply_gradients`: the warmup lr
 at steps 0-3, lr multipliers by module, norm and embedding decay groups, a
-frozen prefix, with and without full-model clipping.
+frozen prefix, with and without full-model clipping. SGD (SOLVER.OPTIMIZER
+SGD, momentum 0.9) runs the same four steps; torch.optim.SGD with the same
+weight decay folds the decay into the momentum buffer and misses the chain
+from the second step on.
 """
 import os
 
@@ -48,7 +51,7 @@ UPDATE_REL = 3e-5
 ULPS = 4.8e-7
 
 
-def _cfgs(clip):
+def _cfgs(clip, optimizer="ADAMW"):
     out = []
     for make in (jax_get_cfg, get_cfg):
         cfg = make()
@@ -56,6 +59,7 @@ def _cfgs(clip):
         cfg.INPUT.IMAGE_SIZE = (H, W)
         for k, v in SOLVER.items():
             setattr(cfg.SOLVER, k, v)
+        cfg.SOLVER.OPTIMIZER = optimizer
         cfg.SOLVER.CLIP_GRADIENTS.ENABLED = clip
         cfg.MODEL.FREEZE = [FROZEN]
         out.append(cfg)
@@ -125,3 +129,82 @@ def test_adamw_steps_match_optax(params, clip):
             tol = UPDATE_REL * lr_of[id(p)] + ULPS * np.abs(before[n].numpy()).max()
             assert np.abs(d_got - d_want).max() <= tol, (k, n)
     assert isinstance(step.optimizer, torch.optim.AdamW)
+
+
+def sgd_steps(params, clip, swap=None):
+    """N_STEPS of the port's SGD (or of the optimizer `swap(step)` puts in
+    its place) and of the optax SGD chain on the same seeded gradients:
+    per step, the parameters' model-wide relative distance and the largest
+    per-tensor update error in units of its tolerance (1e-3 of the tensor's
+    update plus four f32 ulps of its largest parameter)."""
+    jcfg, tcfg = _cfgs(clip, "SGD")
+    jparams = jax.tree_util.tree_map(jnp.asarray, params)
+    tx = jax_apply_freeze(jax_build_optimizer(jcfg, jparams), jparams, frozen_prefixes=(FROZEN,))
+    opt_state = tx.init(jparams)
+    update = jax.jit(lambda g, s, p: tx.update(g, s, p))
+    model = build_train_model(tcfg, device="cpu")
+    model.load_state_dict(state_dict_from_jax(params, None, image_size=(H, W)))
+    step = TrainStep(model, tcfg)
+    if swap is not None:
+        step.optimizer = swap(step)
+    rng = np.random.default_rng(12)
+    names = dict(model.named_parameters())
+    rows = []
+    for _ in range(N_STEPS):
+        grads = jax.tree_util.tree_map(
+            lambda a: rng.normal(0, 1e-2, np.shape(a)).astype(np.float32), params)
+        before = {n: p.detach().clone() for n, p in names.items()}
+        g_sd = state_dict_from_jax(grads, None, image_size=(H, W))
+        for n, p in names.items():
+            p.grad = g_sd[n].clone()
+        assert step.apply_gradients()[1]
+        upd, opt_state = update(jax.tree_util.tree_map(jnp.asarray, grads), opt_state, jparams)
+        jparams = optax.apply_updates(jparams, upd)
+        want = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, jparams), None,
+                                   image_size=(H, W))
+        diff = sum(float(((p.detach() - want[n]) ** 2).sum()) for n, p in names.items())
+        ref = sum(float((want[n] ** 2).sum()) for n in names)
+        worst = 0.0
+        for n, p in names.items():
+            d_got = (p.detach() - before[n]).numpy()
+            d_want = want[n].numpy() - before[n].numpy()
+            if f".{FROZEN}." in n:
+                assert not d_got.any() and not d_want.any(), n
+                continue
+            # clipped to a norm of 0.01 some updates fall under an ulp
+            assert clip or np.abs(d_want).max() > 0, n
+            tol = 1e-3 * np.abs(d_want).max() + ULPS * np.abs(before[n].numpy()).max()
+            worst = max(worst, float(np.abs(d_got - d_want).max() / tol))
+        rows.append(((diff / ref) ** 0.5, worst))
+    return step, rows
+
+
+@pytest.mark.parametrize("clip", [False, True])
+def test_sgd_steps_match_optax(params, clip):
+    """The optax chain clip -> trace(momentum) -> add_decayed_weights ->
+    scale(-lr) -> per-module multiplier, with non-zero weight decay in two
+    groups and multipliers 0.1 to 2: the parameters after each step within
+    1e-6 relative, each tensor's update within its tolerance."""
+    step, rows = sgd_steps(params, clip)
+    assert type(step.optimizer).__name__ == "SGD"
+    assert not isinstance(step.optimizer, torch.optim.SGD)
+    assert {g["weight_decay"] for g in step.optimizer.param_groups} >= {0.05, 0.02}
+    for k, (rel, worst) in enumerate(rows):
+        assert rel <= PARAM_REL and worst <= 1.0, (k, rel, worst)
+    # the momentum buffers are the optimizer state a checkpoint saves
+    state = step.optimizer.state_dict()["state"]
+    assert state and all(set(s) == {"momentum_buffer"} for s in state.values())
+
+
+def test_torch_sgd_weight_decay_is_not_the_optax_chain(params):
+    """torch.optim.SGD(momentum, weight_decay=wd) on the same groups adds
+    wd * p to the gradient before the momentum buffer: its first step is the
+    chain's, every later one is not."""
+    def torch_sgd(step):
+        groups = [{"params": g["params"], "lr": g["lr"], "lr_mult": g["lr_mult"],
+                   "weight_decay": g["weight_decay"]} for g in step.optimizer.param_groups]
+        return torch.optim.SGD(groups, lr=SOLVER["BASE_LR"], momentum=0.9)
+
+    _, rows = sgd_steps(params, False, swap=torch_sgd)
+    assert rows[0][0] <= PARAM_REL, rows[0]
+    assert all(rel > 10 * PARAM_REL and worst > 1.0 for rel, worst in rows[1:]), rows

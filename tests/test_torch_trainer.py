@@ -430,6 +430,17 @@ def check_resume_bit_equal(tmp_path, monkeypatch, caplog, opts=()):
             if k not in TIME_KEYS:
                 assert rows_b[it][k] == v, (it, k)
     shutil.rmtree(tmp_path)
+    return sa
+
+
+def test_sgd_resume_is_bit_equal_to_continuing_in_memory(tmp_path, monkeypatch, caplog):
+    """The resume test with SOLVER.OPTIMIZER SGD (momentum buffers, weight
+    decay outside them) and MODEL.DEPTH_ON: the checkpoint carries the
+    momentum buffers, so the resumed steps are the ones in memory."""
+    state = check_resume_bit_equal(tmp_path, monkeypatch, caplog,
+                                   ["SOLVER.OPTIMIZER", "SGD", "MODEL.DEPTH_ON", "True"])
+    assert state["state"] and all(set(s) == {"momentum_buffer"} for s in state["state"].values())
+    assert {g["momentum"] for g in state["param_groups"]} == {0.9}
 
 
 def test_resume_without_a_checkpoint_starts_fresh(tmp_path, caplog):

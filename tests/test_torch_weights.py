@@ -8,7 +8,10 @@ is compiled). The port's state_dict is saved to a .pth, read back through
 leaf bit for bit with no checkpoint tensor left unconsumed; the same
 state_dict must load strictly into the port's model. A state_dict after a
 train step of the port (trained parameters, updated BN running statistics)
-makes the round trip torch -> JAX -> torch bit for bit.
+makes the round trip torch -> JAX -> torch bit for bit. The same round trip
+and strict load with MODEL.DEPTH_ON, whose `top_down_depth` and `depth`
+layers are the reference's `sem_seg_head.top_down_depth.*` and
+`sem_seg_head.depth.*`.
 """
 import os
 
@@ -35,10 +38,10 @@ SMOKE = os.path.join(REPO, "configs", "smoke_synthetic.yaml")
 H, W = 480, 640
 
 
-@pytest.fixture(scope="module")
-def trees():
+def _trees(depth_on):
     cfg = jax_get_cfg()
     cfg.merge_from_file(CONFIG)
+    cfg.MODEL.DEPTH_ON = depth_on
     model = jax_build_model(cfg)
     x = jnp.zeros((1, H, W, 3), jnp.float32)
     shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), x, x, out_h=H, out_w=W,
@@ -52,6 +55,11 @@ def trees():
 
     filled = jax.tree_util.tree_map_with_path(fill, shapes)
     return filled["params"], filled["batch_stats"]
+
+
+@pytest.fixture(scope="module")
+def trees():
+    return _trees(False)
 
 
 @pytest.fixture(scope="module")
@@ -143,3 +151,46 @@ def test_round_trip_after_a_train_step(trees, tmp_path):
     assert sorted(back) == sorted(full)
     for k, v in full.items():
         assert torch.equal(back[k], v), k
+
+
+@pytest.fixture(scope="module")
+def depth_trees():
+    return _trees(True)
+
+
+def test_depth_layers_round_trip_and_load_strictly(depth_trees, tmp_path):
+    """state_dict_from_jax carries top_down_depth (its 8 conv + BN
+    laterals, BN statistics included) and the depth conv; the JAX importer
+    consumes every tensor and gives back every leaf; the port's DEPTH_ON
+    model loads the state_dict strictly, and the model without the branch
+    does not."""
+    params, stats = depth_trees
+    sd = state_dict_from_jax(params, stats, image_size=(H, W))
+    depth_keys = sorted(k for k in sd if k.startswith(("sem_seg_head.top_down_depth.",
+                                                       "sem_seg_head.depth.")))
+    assert len(depth_keys) == 8 * 5 + 2
+    assert "sem_seg_head.top_down_depth.m_conv_dict.m4.1.running_var" in depth_keys
+    assert tuple(sd["sem_seg_head.depth.weight"].shape) == (1, 256, 1, 1)
+    path = tmp_path / "depth.pth"
+    torch.save({"model": sd}, path)
+    zeros = jax.tree_util.tree_map(np.zeros_like, (params, stats))
+    got_params, got_stats, report = import_torch_weights(
+        zeros[0], str(path), batch_stats=zeros[1], return_report=True)
+    assert report["unconsumed"] == [] and report["n_checkpoint"] == len(sd)
+    for want, got in ((params, got_params), (stats, got_stats)):
+        lw, lg = _leaves(want), _leaves(got)
+        assert sorted(lw) == sorted(lg)
+        for key, v in lw.items():
+            np.testing.assert_array_equal(lg[key], v, err_msg=key)
+    cfg = get_cfg()
+    cfg.merge_from_file(CONFIG)
+    cfg.MODEL.DEPTH_ON = True
+    model = build_model_from_cfg(cfg, device="cpu", seed=2)
+    assert sorted(model.state_dict()) == sorted(sd)
+    assert load_weights(model, str(path), strict=True) == {"missing": [], "unexpected": []}
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, sd[k]), k
+    cfg.MODEL.DEPTH_ON = False
+    with pytest.raises(RuntimeError, match="top_down_depth"):
+        load_weights(build_model_from_cfg(cfg, device="cpu"), str(path), strict=True)
+    os.remove(path)

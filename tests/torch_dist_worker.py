@@ -46,6 +46,24 @@ def bn_state(model):
             and isinstance(model.get_submodule(k.rsplit(".", 1)[0]), BatchNorm2d)}
 
 
+def counted_all_reduces(fn):
+    """fn() and the number of torch.distributed.all_reduce calls it made."""
+    import torch.distributed as dist
+
+    calls = []
+    real = dist.all_reduce
+
+    def counting(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    dist.all_reduce = counting
+    try:
+        return fn(), len(calls)
+    finally:
+        dist.all_reduce = real
+
+
 def digest(tensors):
     """sha256 of the tensors' bytes, in order: bit-equality across ranks."""
     h = hashlib.sha256()
@@ -97,7 +115,8 @@ def train_rank(spec_path):
     model = build_train_model(cfg, device="cpu")
     model.load_state_dict(spec["sd"], strict=True)
     out["matches"] = detect_matches(model, part)
-    losses, _ = TrainStep(model, cfg).forward_backward(part, *aim)
+    (losses, _), out["all_reduces"] = counted_all_reduces(
+        lambda: TrainStep(model, cfg).forward_backward(part, *aim))
     grads = {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
     out["losses"] = {k: float(v) for k, v in losses.items()}
     out["grads_digest"] = digest([grads[k] for k in sorted(grads)])
@@ -144,6 +163,30 @@ def train_rank(spec_path):
         mine.append(mine[-1])
     out["precise_bn_n"] = recompute_batch_stats(model, iter(mine), num_iter=len(mine) + 2)
     out["precise_bn"] = bn_state(model)
+    return out
+
+
+def depth_rank(spec_path):
+    """The DEPTH_ON case of test_torch_dist_train.py on this rank's part of
+    the global batch: one train_forward with MODEL.DEPTH_ON and its
+    backward, as in (a): the global losses, the summed gradients and the new
+    BN statistics."""
+    torch.set_num_threads(THREADS)
+    spec = torch.load(spec_path, weights_only=False)
+    r, world = rank(), world_size()
+    part = batch_to_device(rank_part(spec["batch"], r, world), "cpu")
+    aim = [a[r * (len(a) // world):(r + 1) * (len(a) // world)] for a in spec["aim"]]
+    cfg = smoke_cfg(spec["opts"])
+    model = build_train_model(cfg, device="cpu")
+    model.load_state_dict(spec["sd"], strict=True)
+    (losses, _), n_all_reduces = counted_all_reduces(
+        lambda: TrainStep(model, cfg).forward_backward(part, *aim))
+    grads = {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
+    out = {"rank": r, "losses": {k: float(v) for k, v in losses.items()},
+           "all_reduces": n_all_reduces,
+           "grads_digest": digest([grads[k] for k in sorted(grads)]), "bn": bn_state(model)}
+    if r == 0:
+        out["grads"] = grads
     return out
 
 
