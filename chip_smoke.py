@@ -2011,10 +2011,10 @@ def sp_topcam_table(pairs):
 
 
 def ablation_args(torch, variant, batches, nq, seed):
-    """The eval-step arguments of each batch for `variant`: the uint8 images,
-    and with (a) the GT geometry with its noise (`engine/test.py`'s
-    functions, one generator over the batches), with (b) the pickle's
-    poses. Host tensors; the eval step moves them."""
+    """The eval step's keyword arguments of each batch for `variant`: the
+    uint8 images, and with (a) `gt_geo`, the GT geometry with its noise
+    (`engine/test.py`'s functions, one generator over the batches), with (b)
+    `init_cam`, the pickle's poses. On the host; the eval step moves them."""
     import numpy as np
 
     from nopesac_torch.engine.test import gt_geo_from_samples, sp_topcam_of
@@ -2023,15 +2023,12 @@ def ablation_args(torch, variant, batches, nq, seed):
     table = sp_topcam_table([p for chunk, _ in batches for p in chunk])
     out = []
     for chunk, samples in batches:
-        args = [torch.from_numpy(np.stack([s[f"image{v}"] for s in samples])) for v in "01"]
+        args = {f"image{v}": torch.from_numpy(np.stack([s[f"image{v}"] for s in samples]))
+                for v in "01"}
         if variant == "gt_matcher":
-            extra = gt_geo_from_samples(chunk, samples, nq, noise_rng=rng)
+            args["gt_geo"] = gt_geo_from_samples(chunk, samples, nq, noise_rng=rng)
         elif variant == "sp_topcam":
-            extra = sp_topcam_of(table, chunk)
-        else:
-            extra = None
-        if extra is not None:
-            args.append({k: torch.from_numpy(v) for k, v in extra.items()})
+            args["init_cam"] = sp_topcam_of(table, chunk)
         out.append(args)
     return out
 
@@ -2040,8 +2037,8 @@ def ablation_steps(torch, model, depth_model, h, w, cfg):
     from nopesac_torch.engine.predict import make_eval_step
 
     kw = dict(pixel_mean=cfg.MODEL.PIXEL_MEAN, pixel_std=cfg.MODEL.PIXEL_STD)
-    return {"gt_matcher": make_eval_step(model, h, w, with_gt_geo=True, **kw),
-            "sp_topcam": make_eval_step(model, h, w, with_init_cam=True, **kw),
+    step = make_eval_step(model, h, w, **kw)
+    return {"gt_matcher": step, "sp_topcam": step,
             "depth": make_eval_step(depth_model, h, w, **kw)}
 
 
@@ -2109,12 +2106,12 @@ def run_ablations(torch, dev, model, fused, card):
     with torch.inference_mode():
         for variant, step in steps.items():
             args = ablation_args(torch, variant, batches, nq, seed=42)
-            step(*args[0])  # warm-up
+            step(**args[0])  # warm-up
             torch.cuda.synchronize()
             LAUNCHES.reset()
             pixel_camera_calls.clear()
             t0 = time.perf_counter()
-            outs[variant] = [step(*a) for a in args[1:]]
+            outs[variant] = [step(**a) for a in args[1:]]
             torch.cuda.synchronize()
             times[variant] = (time.perf_counter() - t0) / N_BATCHES * 1e3
             counts = LAUNCHES.snapshot()
@@ -2147,14 +2144,13 @@ def run_ablations(torch, dev, model, fused, card):
             card, {k: round(v, 2) for k, v in times.items()}))
 
         # (a) through the fused-tail backbone
-        step = make_eval_step(fused, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD,
-                              with_gt_geo=True)
+        step = make_eval_step(fused, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
         args = ablation_args(torch, "gt_matcher", batches, nq, seed=42)
-        step(*args[0])
+        step(**args[0])
         torch.cuda.synchronize()
         LAUNCHES.reset()
         t0 = time.perf_counter()
-        fused_outs = [step(*a) for a in args[1:]]
+        fused_outs = [step(**a) for a in args[1:]]
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / N_BATCHES * 1e3
         counts = LAUNCHES.snapshot()
@@ -2179,8 +2175,8 @@ def run_ablations(torch, dev, model, fused, card):
         per_device[d] = ablation_steps(torch, m, depth_model_of(torch, small, m, d), 96, 128, small)
     for variant in ABLATIONS:
         args = ablation_args(torch, variant, small_batches, nq, seed=42)[0]
-        ref = per_device["cpu"][variant](*args)
-        got = per_device[dev][variant](*args)
+        ref = per_device["cpu"][variant](**args)
+        got = per_device[dev][variant](**args)
         compare_with_cpu(torch, ref, got, f"ablation {variant} 96x128")
         if variant == "depth":
             compare_depth(torch, ref, got, "ablation depth 96x128")

@@ -31,6 +31,11 @@ _DATA_ROOTS = {
 }
 
 
+def dataset_kind(name: str) -> str:
+    """The layout of a split's files, by its name: "scannet" or "mp3d"."""
+    return "scannet" if "scannet" in name else "mp3d"
+
+
 def load_pair_json(json_file: str, dataset_name: str | None = None) -> List[dict]:
     with open(json_file) as f:
         summary = json.load(f)

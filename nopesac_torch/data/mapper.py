@@ -11,9 +11,9 @@ Evaluation (`is_train=False`): the images stay uint8 (the eval step
 normalises them on the device) and targets are attached only with
 `eval_gt_box`. Both carry the pair's metas, pose and correspondences. The
 pose's quaternion is sign-canonical (w >= 0) unless `camera_cls_on`
-(MODEL.CAMERA_HEAD.CLASSIFICATION_ON: the camera bins fix the sign); with
-`load_bins` the meta also holds the pose's bins, `tran_cls` and `rot_cls`
-(`data/cam_bins.py`, from the in-repo `camCls/cam_bins.npz`).
+(MODEL.CAMERA_HEAD.CLASSIFICATION_ON: the camera bins fix the sign). The
+JAX mapper's `load_bins` (the pose's bins in the meta) has no counterpart:
+nothing reads them without a classification head.
 
 Images come from the pair dict (`data/synthetic.py` renders them) or from
 `file_name` (the reference jsons' MP3D prefix replaced by `root_dir`,
@@ -41,7 +41,6 @@ import numpy as np
 
 from ..utils import rle
 from .augmentation import simclr_augment
-from .cam_bins import CameraBins
 
 MP3D_PATH_PREFIX = "/Pool1/users/jinlinyi/dataset/mp3d_rpnet_v4_sep20/"
 DEFAULT_FOCAL = 517.97
@@ -75,7 +74,7 @@ class PairMapper:
                  pixel_mean=(123.675, 116.280, 103.530), pixel_std=(58.395, 57.120, 57.375),
                  is_train: bool = True, eval_gt_box: bool = False, root_dir: str = "",
                  dataset_kind: str = "mp3d", augmentation: bool = False, seed: int = 42,
-                 camera_cls_on: bool = False, load_bins: bool = False):
+                 camera_cls_on: bool = False):
         self.nq = num_queries
         self.h, self.w = image_size
         if self.w % 8:
@@ -93,7 +92,6 @@ class PairMapper:
         self.augmentation = augmentation and is_train
         self._aug_rng = np.random.default_rng(seed)
         self.camera_cls_on = camera_cls_on
-        self.bins = CameraBins(dataset=dataset_kind) if load_bins else None
 
     def image(self, view: dict) -> np.ndarray:
         """The view's uint8 image [H, W, 3]: in memory, else read from
@@ -249,9 +247,6 @@ class PairMapper:
                 rot = -rot
             tran = np.asarray(rel["position"], np.float32)
             sample["gt_pose"] = np.concatenate([tran, rot]).astype(np.float32)
-            if self.bins is not None:
-                sample["meta"]["tran_cls"] = self.bins.xyz2class(*rel["position"])
-                sample["meta"]["rot_cls"] = self.bins.quat2class(*rel["rotation"])
         else:
             sample["gt_pose"] = np.asarray([0, 0, 0, 1, 0, 0, 0], np.float32)
 

@@ -93,17 +93,16 @@ def build_model_from_cfg(cfg: CfgNode, device: DeviceLike = None,
 
 def make_eval_step(model: PlaneTRNopeSAC, out_h: int = 480, out_w: int = 640,
                    pixel_mean: Sequence[float] = (123.675, 116.280, 103.530),
-                   pixel_std: Sequence[float] = (58.395, 57.120, 57.375),
-                   with_gt_geo: bool = False, with_init_cam: bool = False) -> Callable:
-    """eval_step(image0, image1[, gt_geo][, init_cam]) on raw uint8 NHWC
-    images [B, H, W, 3] -> the inference dict. Normalisation is
+                   pixel_std: Sequence[float] = (58.395, 57.120, 57.375)) -> Callable:
+    """eval_step(image0, image1, gt_geo=None, init_cam=None) on raw uint8
+    NHWC images [B, H, W, 3] -> the inference dict. Normalisation is
     (f32(u8) - mean) * f32(1/std), with the inverse std computed in numpy
     f32, the same IEEE ops as the JAX eval step, so normalised inputs are
-    bit-equal. As the JAX step, `with_gt_geo` adds a gt_geo argument (the
-    GT-matcher ablation, TEST.POSE_REFINEMENT_WITH_GT_MATCHERS) and
-    `with_init_cam` an init_cam one (the SparsePlanes top-1 camera,
-    MODEL.CAMERA_HEAD.INFERENCE_SP_TOPCAM_ON), each a dict of tensors
-    (`PlaneTRNopeSAC.camera_inference`), moved to the model's device."""
+    bit-equal. `gt_geo` (the GT-matcher ablation,
+    TEST.POSE_REFINEMENT_WITH_GT_MATCHERS) and `init_cam` (the SparsePlanes
+    top-1 camera, MODEL.CAMERA_HEAD.INFERENCE_SP_TOPCAM_ON) are dicts of
+    arrays or tensors (`PlaneTRNopeSAC.camera_inference`); the step moves
+    them and the images to the model's device."""
     dev = next(model.parameters()).device
     mean = torch.from_numpy(np.asarray(pixel_mean, np.float32)).to(dev)
     inv_std = torch.from_numpy((1.0 / np.asarray(pixel_std, np.float32)).astype(np.float32)).to(dev)
@@ -115,17 +114,15 @@ def make_eval_step(model: PlaneTRNopeSAC, out_h: int = 480, out_w: int = 640,
         x = (img.to(dev).to(torch.float32) - mean) * inv_std
         return x.permute(0, 3, 1, 2).contiguous()
 
-    def eval_step(image0: torch.Tensor, image1: torch.Tensor, *extra):
-        if len(extra) != with_gt_geo + with_init_cam:
-            raise TypeError(f"this eval step takes {with_gt_geo + with_init_cam} argument(s) "
-                            f"after the images (gt_geo {with_gt_geo}, init_cam "
-                            f"{with_init_cam}), got {len(extra)}")
-        extra = [{k: v.to(dev) for k, v in d.items()} for d in extra]
-        gt_geo = extra.pop(0) if with_gt_geo else None
-        init_cam = extra.pop(0) if with_init_cam else None
+    def to_dev(arrays):
+        if arrays is None:
+            return None
+        return {k: torch.as_tensor(v).to(dev) for k, v in arrays.items()}
+
+    def eval_step(image0: torch.Tensor, image1: torch.Tensor, gt_geo=None, init_cam=None):
         with torch.inference_mode():
             return model.inference(norm(image0), norm(image1), out_h=out_h, out_w=out_w,
-                                   gt_geo=gt_geo, init_cam=init_cam)
+                                   gt_geo=to_dev(gt_geo), init_cam=to_dev(init_cam))
 
     return eval_step
 

@@ -189,7 +189,7 @@ class EvalRunner:
         mapper = PairMapper(nq, (h, w), cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD, is_train=False,
                             eval_gt_box=bool(cfg.TEST.EVAL_GT_BOX),
                             root_dir=cfg.DATASETS.ROOT_DIR,
-                            dataset_kind="scannet" if "scannet" in test_name else "mp3d",
+                            dataset_kind=datasets.dataset_kind(test_name),
                             camera_cls_on=cfg.MODEL.CAMERA_HEAD.CLASSIFICATION_ON)
         # the ablations of pose refinement (camera_head.py:419-431, 520-547)
         gt_matcher = bool(cfg.TEST.POSE_REFINEMENT_WITH_GT_MATCHERS)
@@ -202,14 +202,10 @@ class EvalRunner:
         sp_topcam = load_sp_topcam(cfg)
         evaluator = MP3DEvaluator(test_name, cfg, dataset_list=dataset_list, distributed=world > 1)
         dataset_list = dataset_list[rank()::world]
-        eval_step = make_eval_step(self.model, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD,
-                                   with_gt_geo=gt_matcher, with_init_cam=sp_topcam is not None)
+        eval_step = make_eval_step(self.model, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
         dev = next(self.model.parameters()).device
         bs = int(cfg.TEST.IMS_PER_BATCH)
         debug_camera = bool(cfg.DEBUG_CAMERA_ON)
-
-        def to_dev(arrays):
-            return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
 
         def drain(pending):
             chunk, metas, out, done = pending
@@ -230,18 +226,18 @@ class EvalRunner:
             # the tail batch repeats its last sample so the eval step sees one
             # shape; the repeats are dropped before the postprocess
             samples += [samples[-1]] * (bs - n_real)
-            images = [torch.from_numpy(np.stack([s[f"image{i}"] for s in samples])).to(dev)
+            images = [torch.from_numpy(np.stack([s[f"image{i}"] for s in samples]))
                       for i in ("0", "1")]
             pad_chunk = list(chunk) + [chunk[-1]] * (bs - n_real)
-            extra = []
+            gt_geo = init_cam = None
             if gt_matcher:
-                extra.append(to_dev(gt_geo_from_samples(
+                gt_geo = gt_geo_from_samples(
                     pad_chunk, samples, nq, noise_rng=noise_rng,
                     scale_offset=cfg.TEST.POSE_REFINEMENT_WITH_GT_NOISE_MATCHERS_OFFSET_SCALE,
-                    scale_normal_deg=cfg.TEST.POSE_REFINEMENT_WITH_GT_NOISE_MATCHERS_NORMAL_SCALE)))
+                    scale_normal_deg=cfg.TEST.POSE_REFINEMENT_WITH_GT_NOISE_MATCHERS_NORMAL_SCALE)
             if sp_topcam is not None:
-                extra.append(to_dev(sp_topcam_of(sp_topcam, pad_chunk)))
-            out = _fetch(eval_step(*images, *extra))
+                init_cam = sp_topcam_of(sp_topcam, pad_chunk)
+            out = _fetch(eval_step(*images, gt_geo=gt_geo, init_cam=init_cam))
             done = None
             if dev.type == "cuda":
                 done = torch.cuda.Event()

@@ -90,10 +90,6 @@ def flatten_metrics(tree: Dict, prefix: str = "") -> Dict[str, float]:
     return flat
 
 
-def dataset_kind(name: str) -> str:
-    return "scannet" if "scannet" in name else "mp3d"
-
-
 def resolve_num_gpus(cfg: CfgNode, num_gpus: Optional[int], num_machines: int,
                      device_type: str, training: bool = True) -> int:
     """The ranks per machine of `--num-gpus`, checked as the JAX package's
@@ -158,7 +154,8 @@ class Trainer:
         name = cfg.DATASETS.TRAIN[0]
         mapper = PairMapper(cfg.MODEL.SEM_SEG_HEAD.NUM_OBJECT_QUERIES, tuple(cfg.INPUT.IMAGE_SIZE),
                             cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD, is_train=True,
-                            root_dir=cfg.DATASETS.ROOT_DIR, dataset_kind=dataset_kind(name),
+                            root_dir=cfg.DATASETS.ROOT_DIR,
+                            dataset_kind=datasets.dataset_kind(name),
                             augmentation=cfg.DATALOADER.AUGMENTATION, seed=cfg.SEED,
                             camera_cls_on=cfg.MODEL.CAMERA_HEAD.CLASSIFICATION_ON)
         return PairLoader(self._train_dataset or DatasetCatalog.get(name), mapper,

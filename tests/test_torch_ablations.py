@@ -168,9 +168,8 @@ def test_eval_step_with_gt_geo_and_depth_matches_jax(entry_point):
                 {k: jnp.asarray(v) for k, v in geo.items()})
     ref = jax.tree_util.tree_map(np.asarray, ref)
     step = make_eval_step(entry_point["model"], H, W, tcfg.MODEL.PIXEL_MEAN,
-                          tcfg.MODEL.PIXEL_STD, with_gt_geo=True)
-    got = step(*[torch.from_numpy(i) for i in imgs], {k: torch.from_numpy(v)
-                                                     for k, v in geo.items()})
+                          tcfg.MODEL.PIXEL_STD)
+    got = step(*[torch.from_numpy(i) for i in imgs], gt_geo=geo)
     fr, fg = _flat(ref), _flat(got)
     assert sorted(fr) == sorted(fg)
     for k, r in fr.items():
@@ -184,8 +183,9 @@ def test_eval_step_with_gt_geo_and_depth_matches_jax(entry_point):
     for k, r in _flat(ref["cameras"]).items():
         np.testing.assert_allclose(_flat(got["cameras"])[k].numpy(), r, atol=CAM_TOL, rtol=0,
                                    err_msg=k)
-    with pytest.raises(TypeError, match="gt_geo"):
-        step(*[torch.from_numpy(i) for i in imgs])
+    # the same step without gt_geo refines on the predicted matches
+    plain = _flat(step(*[torch.from_numpy(i) for i in imgs])["cameras"])
+    assert any(not torch.equal(plain[k], v) for k, v in _flat(got["cameras"]).items())
 
 
 # ------------------------------------------ camera_inference on injected inputs
@@ -360,10 +360,9 @@ def test_bf16_dtypes_match_jax(entry_point):
         {k: jnp.asarray(v) for k, v in geo.items()})
     model = build_model_from_cfg(tcfg, device="cpu")
     model.load_state_dict(entry_point["model"].state_dict(), strict=True)
-    step = make_eval_step(model, H, W, tcfg.MODEL.PIXEL_MEAN, tcfg.MODEL.PIXEL_STD,
-                          with_gt_geo=True)
+    step = make_eval_step(model, H, W, tcfg.MODEL.PIXEL_MEAN, tcfg.MODEL.PIXEL_STD)
     got = step(*[torch.from_numpy(np.stack([s[f"image{v}"] for s in samples]))
-                 for v in ("0", "1")], {k: torch.from_numpy(v) for k, v in geo.items()})
+                 for v in ("0", "1")], gt_geo=geo)
     fr, fg = _flat(jax.tree_util.tree_map(lambda s: s, shapes)), _flat(got)
     assert sorted(fr) == sorted(fg)
     for k, s in fr.items():

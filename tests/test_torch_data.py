@@ -215,16 +215,15 @@ def test_mapper_real_split_pickles_equal_jax(tmp_path, kind, size, augmentation)
 
 
 @pytest.mark.parametrize("kind", ["mp3d", "scannet"])
-@pytest.mark.parametrize("camera_cls_on,load_bins", [(True, False), (True, True), (False, True)])
-def test_mapper_camera_classification_equal_jax(tmp_path, kind, camera_cls_on, load_bins):
+@pytest.mark.parametrize("camera_cls_on", [True, False])
+def test_mapper_camera_classification_equal_jax(tmp_path, kind, camera_cls_on):
     """MODEL.CAMERA_HEAD.CLASSIFICATION_ON keeps the pose quaternion's sign
-    (here w < 0); load_bins adds the pose's camera bins (`tran_cls`,
-    `rot_cls` from camCls/cam_bins.npz, per dataset) to the meta: the
-    samples, metas included, equal the JAX mapper's, in training and in
+    (here w < 0), and without it the sign is made canonical: the samples,
+    metas included, equal the JAX mapper's, in training and in
     evaluation."""
     root, pair = _real_split_pair(tmp_path, kind, (H, W), seed=3)
     assert pair["rel_pose"]["rotation"][0] < 0
-    kw = dict(dataset_kind=kind, root_dir=root, camera_cls_on=camera_cls_on, load_bins=load_bins)
+    kw = dict(dataset_kind=kind, root_dir=root, camera_cls_on=camera_cls_on)
     for is_train in (True, False):
         ours = PairMapper(NQ, (H, W), is_train=is_train, **kw)
         theirs = JaxPairMapper(image_size=(H, W), num_queries=NQ, is_train=is_train,
@@ -234,9 +233,6 @@ def test_mapper_camera_classification_equal_jax(tmp_path, kind, camera_cls_on, l
         assert_batches_equal({k: v for k, v in a.items() if k != "meta"},
                              {k: v for k, v in b.items() if k != "meta"})
         assert (a["gt_pose"][3] < 0) == camera_cls_on
-        assert ("tran_cls" in a["meta"] and "rot_cls" in a["meta"]) == load_bins
-    if load_bins:
-        assert isinstance(a["meta"]["tran_cls"], int) and 0 <= a["meta"]["rot_cls"] < 32
 
 
 def test_mapper_without_pickles_falls_back_to_annotations_like_jax(tmp_path):

@@ -10,15 +10,12 @@ through one jitted JAX value-and-grad of `detect` plus
 its `depth_loss_siamese` on the CPU: the train-mode depth map within 1e-3
 of its largest value (BN over the batch in the two top-down decoders
 amplifies the frameworks' 1e-5 differences of the FPN inputs; measured
-1.8e-4; the eval-mode depth0/depth1 are held to 1e-4 in
+1.2e-4; the eval-mode depth0/depth1 are held to 1e-4 in
 tests/test_torch_ablations.py), the loss within max(1e-4, 1e-3 relative),
 the gradient of `depth` within 1e-3 relative, the new BN statistics of
-`top_down_depth` within 5e-5 (tests/test_torch_train.py's tolerances). The
-gradient of `top_down_depth` is held within max(1e-3, 2 d), d the port's own
-deviation when the batch's two pairs swap places (the same sums in another
-order): at the random model's 3x4 res5 map the BN over the batch of its
-deep laterals (c4, m4, up_conv3) amplifies f32 rounding, d = 2.5e-3 and
-the JAX gap 2.9e-3 on this fixture. The
+`top_down_depth` within 5e-5 (tests/test_torch_train.py's tolerances), and
+the gradient of `top_down_depth` within 1e-3 relative too, on a conditioned
+init (`_condition`). The
 bilinear resize of the depth map is held per element against
 `jax.image.resize`. SGD's update rule is held against optax in
 tests/test_torch_optimizer.py; here a DEPTH_ON train step with SGD.
@@ -54,6 +51,10 @@ LOSS_ABS, LOSS_REL = 1e-4, 1e-3  # tests/test_torch_train.py
 GRAD_REL = 1e-3
 BN_TOL = 5e-5
 TRAIN_DEPTH_TOL = 1e-3  # of max |JAX depth|, train-mode map (see above)
+# The port's own deviation, relative, when the batch's two pairs swap places
+# (the same sums in another order): the conditioned init's 2.7e-6 with
+# headroom, far under GRAD_REL, so that GRAD_REL measures the frameworks
+SWAP_REL = 1e-4
 OPTS = ["INPUT.IMAGE_SIZE", f"({H}, {W})", "MODEL.SEM_SEG_HEAD.DROPOUT", "0.0",
         "MODEL.MATCHING_HEAD.SINKHORN_ITERS", "10", "MODEL.DEPTH_ON", "True",
         "SOLVER.IMS_PER_BATCH", str(PAIRS)]
@@ -96,6 +97,64 @@ def test_depth_resize_matches_jax_image_resize(src, dst):
     assert np.abs(corners - want).max() > 1e-2
 
 
+def _condition(params, sd, images):
+    """Project the rows of `top_down_depth`'s m4 lateral kernel off the
+    batch mean of its input, the encoder memory. The random model's memory
+    carries a large common component at the 3x4 res5 map (the lateral's
+    conv output reached |mean| / std = 100 per channel over the batch),
+    where the BN's variance E[x^2] - E[x]^2 (Flax's, and the port's) loses
+    about 13 bits. That rounding, 1.7e-4 of the lateral's output, then grew
+    through the decoder's batch-statistics backward to 2.5e-3 of the
+    module's gradient between two orders of the same batch in the port
+    alone (2.9e-3 against JAX). Projected, the same swap moves it by
+    2.7e-6 and JAX is 5e-4 away. The memory does not depend on the
+    kernel; it is read from the port at the unconditioned weights, and
+    the same conditioned kernel goes to both frameworks."""
+    _, tcfg = _cfgs()
+    tcfg.MODEL.CAMERA_ON = tcfg.MODEL.EMBEDDING_ON = False
+    model = build_train_model(tcfg, device="cpu")
+    model.load_state_dict(sd, strict=True)
+    seen = {}
+    model.sem_seg_head.top_down_depth.m_conv_dict["m4"][0].register_forward_hook(
+        lambda _m, inputs, _out: seen.update(memory=inputs[0]))
+    with torch.no_grad():
+        model.detect(torch.from_numpy(images).permute(0, 3, 1, 2).contiguous())
+    mean = seen["memory"].double().mean(dim=(0, 2, 3)).numpy()
+    conv = params["plane_head"]["top_down_depth"]["m4_conv"]["Conv_0"]
+    kernel = np.asarray(conv["kernel"], np.float64)  # [1, 1, in, out]
+    along = np.einsum("i,abio->abo", mean, kernel) / (mean @ mean)
+    conv["kernel"] = (kernel - mean[None, None, :, None] * along[:, :, None, :]).astype(np.float32)
+    return params
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_depth_loss_counts_in_the_prediction_dtype(dtype):
+    """depth_loss_siamese at 480x640 on one pair (no model): the per-view
+    counts of depth pixels are rounded to the prediction's dtype, as the
+    JAX package sums its mask in that dtype, so a bf16 prediction's loss
+    is JAX's within 1e-5; with bf16 the exact counts would miss it by more
+    than 1e-4. The prediction is constant per view, so both resizes are
+    exact and only the counts can differ."""
+    rng = np.random.default_rng(7)
+    level = np.asarray([1.5, 2.25], np.float32)  # exact in bf16
+    pred = np.broadcast_to(level[:, None, None], (2, 120, 160)).copy()
+    gt = np.where(rng.random((2, 480, 640)) < 0.7, rng.uniform(0.5, 5.0, (2, 480, 640)),
+                  0.0).astype(np.float32)
+    want = float(JCR.depth_loss_siamese(
+        {"pixel_depth": jnp.asarray(pred)[..., None].astype(getattr(jnp, dtype))},
+        {"depth": jnp.asarray(gt)}))
+    got = float(depth_loss_siamese(
+        {"pixel_depth": torch.from_numpy(pred)[:, None].to(getattr(torch, dtype))},
+        {"depth": torch.from_numpy(gt)}))
+    assert abs(got - want) <= 1e-5 * want, (got, want)
+    mask = gt > 1e-4
+    exact = np.mean([np.abs(level[v] - gt[v].astype(np.float64))[mask[v]].mean() for v in (0, 1)])
+    if dtype == "bfloat16":
+        assert abs(exact - want) > 1e-4 * want, (exact, want)
+    else:
+        assert abs(exact - want) <= 1e-5 * want, (exact, want)
+
+
 @pytest.fixture(scope="module")
 def depth_detect():
     jcfg, tcfg = _cfgs()
@@ -108,6 +167,10 @@ def depth_detect():
     variables = jax.jit(lambda x: jmodel.init(jax.random.PRNGKey(0), x, True,
                                               method=jmodel.detect))(jnp.asarray(images))
     variables = jax.tree_util.tree_map(np.asarray, variables)
+    variables["params"] = _condition(
+        variables["params"],
+        state_dict_from_jax(variables["params"], variables["batch_stats"], image_size=(H, W)),
+        images)
 
     def loss_fn(params, stats, x, gt):
         (_, out, _), state = jmodel.apply({"params": params, "batch_stats": stats}, x, True,
@@ -162,9 +225,13 @@ def _rel(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-@pytest.mark.parametrize("module,noise_floor", [("sem_seg_head.top_down_depth", True),
-                                                ("sem_seg_head.depth", False)])
-def test_depth_branch_gradients_match_jax(depth_detect, module, noise_floor):
+@pytest.mark.parametrize("module,swap_check", [("sem_seg_head.top_down_depth", True),
+                                               ("sem_seg_head.depth", False)])
+def test_depth_branch_gradients_match_jax(depth_detect, module, swap_check):
+    """The depth branch's gradients within GRAD_REL of JAX's; for the
+    decoder, which the conditioning is for, the port's own deviation when
+    the pairs swap stays under SWAP_REL, so that the fixture cannot drift
+    back to where rounding decides the comparison."""
     ref, got, _, _ = depth_detect
     names = sorted(n for n in got["grads"] if n.startswith(module + "."))
     assert names, module
@@ -175,8 +242,9 @@ def test_depth_branch_gradients_match_jax(depth_detect, module, noise_floor):
     g, r = flat(got["grads"]), flat(ref["grads"])
     assert np.abs(r).max() > 0
     own = _rel(flat(got["swapped_grads"]), g)
-    tol = max(GRAD_REL, 2 * own) if noise_floor else GRAD_REL
-    assert _rel(g, r) <= tol, (module, _rel(g, r), own)
+    if swap_check:
+        assert own <= SWAP_REL, (module, own)
+    assert _rel(g, r) <= GRAD_REL, (module, _rel(g, r), own)
 
 
 def test_depth_branch_bn_statistics_match_jax(depth_detect):
