@@ -156,8 +156,26 @@ Phases, in order; any failure exits non-zero before the last line:
      f32): the depth head's output bf16, every loss finite; then phase 10's
      one-pair card-versus-CPU step with DEPTH_ON and SOLVER.OPTIMIZER SGD,
      at phase 10's limits.
-Phases 11-13, 15 and 18 run right after phase 7, while the eval model is on
-the card; phases 14, 16 and 19 run after phase 10, phase 17 after phase 14.
+ 20. offline evaluation and visualisation, on phase 13's artifacts under
+     output/eval_entry_point/ (16 pairs at 480x640) and their pairs written
+     as a cached_set json: `python -m nopesac_torch.engine.offline_eval
+     --evaluate AP --num-process 2` as a subprocess, as a user runs it
+     (forked workers), and the CLI's main in process on camera and matching,
+     each with its table; `Evaluator`'s camera medians and accuracies within
+     1e-3 of phase 13's online ones and five finite AP rows; AP and camera
+     again with --camera-cached-file (logits one-hot at the GT pose's bins)
+     and no best_camera for the odd pairs, whose cameras must be the GT
+     bins' centres. Then the visualisation of 4 of those pairs (their
+     renders written as the views' image files; the GT-plane scenes too)
+     and of the planar scene's postprocessed outputs (phase 6, 12 planes
+     per view): `engine/vis.py:vis_pair` where matplotlib imports, else the
+     matching figure and `scene_meshes`' OBJs written by the phase itself
+     (an import check decides before the phase draws): every listed file
+     written, each OBJ's vertex and face counts those of its mesh. No
+     kernel is launched. Prints each mode's and vis's seconds per pair,
+     host figures.
+Phases 11-13, 20, 15 and 18 run right after phase 7, while the eval model is
+on the card; phases 14, 16 and 19 run after phase 10, phase 17 after phase 14.
 Phases 6, 7 and 12 hold the card to the CPU, or the fused path to the
 unfused one, as the CPU is held to JAX in tests/test_torch_slice.py: valid
 planes equal, labels agree on >= 99.9% of pixels, log-scores within 1.5e-3
@@ -258,6 +276,8 @@ PLANE_ERRORS = ("mean_normal", "median_normal", "mean_offset", "median_offset")
 ABLATIONS = ("gt_matcher", "sp_topcam", "depth")  # phase 18's variants (a), (b), (c)
 ABLATION_PAIRS = 8     # phase 18's EvalRunner.test
 DEPTH_TOL = 1e-4       # of max |ref|: depth0/depth1, tests/test_torch_ablations.py
+VIS_PAIRS = 4          # phase 20's visualised pairs of each artifact set
+AP_ROWS = ("all", "-offset", "-normal", "-mask", "-normal-offset")
 
 
 class SmokeFailure(Exception):
@@ -1981,6 +2001,286 @@ def run_entry_point(torch, dev, fused, planar_out, card):
         n_inst = [len(r[v]["instances"]) for r in res for v in ("0", "1")]
         print(f"[entry] postprocess {ms:.3f} ms/pair on the {what}'s outputs (instances per view "
               f"{n_inst}), host CPU of {card}")
+    return out_dir, pairs, results
+
+
+def write_pairs_json(pairs, path):
+    """The pairs as a cached_set json (no in-memory depth or image, no dense
+    annotation masks), as tests/test_torch_eval.py writes them."""
+    strip = ("depth", "image")
+    data = [{k: ({vk: vv for vk, vv in v.items() if vk not in strip}
+                 | {"annotations": [{ak: av for ak, av in a.items() if ak != "mask"}
+                                    for a in v["annotations"]]}
+                 if k in ("0", "1") else v) for k, v in p.items()} for p in pairs]
+    with open(path, "w") as f:
+        json.dump({"categories": [{"name": "plane", "id": 1}], "data": data}, f)
+    return path
+
+
+OFFLINE_TABLES = {"camera": ["Median Error [tran, rot]:", "Accuracy     [tran(1m), rot(30')]:"],
+                  "matching": ["precision2 = ", "recall2 = ", "F-score = "],
+                  "AP": [f"{name:>20s}: " for name in AP_ROWS]}
+
+
+def check_offline_table(stdout, mode, what, card, secs, n_pairs, where):
+    """The mode's table printed; its lines and s/pair shown."""
+    table = OFFLINE_TABLES[mode]
+    lines = stdout.splitlines()
+    missing = [t for t in table if not any(line.startswith(t) for line in lines)]
+    if missing:
+        raise SmokeFailure(f"offline_eval {what}: no {missing} in\n{stdout[-3000:]}")
+    print(f"[offline] {what}: " + "; ".join(
+        line.strip() for line in lines if any(line.startswith(t) for t in table)))
+    print(f"[offline] {what}: {secs / n_pairs:.4f} s/pair ({secs:.2f} s for {n_pairs} pairs, "
+          f"{where}), host CPU of {card}")
+
+
+def offline_eval_cli(flags, what, card, n_pairs):
+    """`python -m nopesac_torch.engine.offline_eval` as a user runs it: exit
+    0 and its table printed."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "nopesac_torch.engine.offline_eval"] + flags,
+                          cwd=REPO, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SmokeFailure(f"offline_eval {what}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+    check_offline_table(proc.stdout, flags[flags.index("--evaluate") + 1], what, card, secs,
+                        n_pairs, "CLI, process start included")
+
+
+def offline_eval_main(flags, what, card, n_pairs):
+    """The CLI's `main` in this process on the same flags, its output
+    captured: exit 0 and its table printed."""
+    import contextlib
+    import io
+
+    from nopesac_torch.engine import offline_eval
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = offline_eval.cli(flags)
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        raise SmokeFailure(f"offline_eval {what}: main returned {rc}\n{out.getvalue()[-3000:]}")
+    check_offline_table(out.getvalue(), flags[flags.index("--evaluate") + 1], what, card, secs,
+                        n_pairs, "main in process")
+
+
+def obj_counts(path):
+    with open(path) as f:
+        lines = f.read().splitlines()
+    return (sum(line.startswith("v ") for line in lines),
+            sum(line.startswith("f ") for line in lines))
+
+
+def check_vis_files(out_dir, idx, pred, meshes, affinity, gt_planes):
+    """Every file of the pair that the vis CLI lists exists, and each OBJ
+    holds the vertices and faces of the mesh it was written from."""
+    import numpy as np
+
+    names = [f"{idx}_matching.png"]
+    if affinity and pred.get("pred_aff") is not None:
+        names.append(f"{idx}_affinity_pred.png")
+    for tag, mesh in meshes.items():
+        parts = mesh if tag == "scene_textured" else [mesh]
+        names.append(f"{idx}_{tag}.obj")
+        if tag == "scene_textured":
+            names += [f"{idx}_{tag}.mtl"] + [f"{idx}_{tag}_tex{k}.png" for k in range(len(parts))]
+        want = (sum(len(p["verts"]) for p in parts), sum(len(p["faces"]) for p in parts))
+        got = obj_counts(os.path.join(out_dir, f"{idx}_{tag}.obj"))
+        if got != want:
+            raise SmokeFailure(f"vis pair {idx}: {tag}.obj has {got} vertices and faces, "
+                               f"the mesh {want}")
+    n_hyp = len(np.asarray(pred["camera_onePP"]["pred"]["rot"]).reshape(-1, 4))
+    want_tags = {"scene", "scene_gt", "scene_textured", "cam_final"} | {
+        f"cam_onePP{k}" for k in range(n_hyp)} | ({"scene_gtplanes"} if gt_planes else set())
+    missing = [n for n in names if not os.path.exists(os.path.join(out_dir, n))]
+    if missing or not want_tags <= set(meshes):
+        raise SmokeFailure(f"vis pair {idx}: missing {missing}, meshes {sorted(meshes)}")
+    return len(names)
+
+
+def vis_pair_without_affinity(idx, pred, od, out_dir, h, w, gt_pair):
+    """`engine/vis.py:vis_pair` but for its stitched-affinity figure, the one
+    file that needs matplotlib: the matching figure, then every mesh."""
+    import numpy as np
+    from PIL import Image
+
+    from nopesac_torch.engine import vis
+    from nopesac_torch.utils.mesh import save_obj, save_obj_textured
+    from nopesac_torch.visualization.vis2d import draw_match
+
+    images = tuple(vis.load_image(pred[v].get("file_name", ""), h, w) for v in ("0", "1"))
+    match_img = draw_match(images[0][0], images[1][0],
+                           [ins["segmentation"] for ins in pred["0"]["instances"]],
+                           [ins["segmentation"] for ins in pred["1"]["instances"]],
+                           np.argwhere(np.asarray(od["best_assignment"])))
+    Image.fromarray(match_img).save(os.path.join(out_dir, f"{idx}_matching.png"))
+    meshes = vis.scene_meshes(pred, od, h, w, images, gt_pair, one_plane_cams=True)
+    for tag, mesh in meshes.items():
+        if tag == "scene_textured":
+            save_obj_textured(out_dir, f"{idx}_{tag}", mesh)
+        else:
+            save_obj(out_dir, f"{idx}_{tag}", mesh)
+    return meshes
+
+
+def run_offline_eval_and_vis(card, entry, planar_out):
+    """Phase 20: the offline evaluator and the visualisation on phase 13's
+    artifacts, and the visualisation of the planar scene's outputs."""
+    import importlib.util
+    import pickle
+    import shutil
+    import types
+
+    import numpy as np
+
+    from nopesac_torch.data.cam_bins import CameraBins
+    from nopesac_torch.engine import offline_eval, vis
+    from nopesac_torch.evaluation.postprocess import postprocess_batch
+    from nopesac_torch.utils.device import LAUNCHES
+
+    out_dir, pairs, online = entry
+    h, w = pairs[0]["0"]["height"], pairs[0]["0"]["width"]
+    n = len(pairs)
+    work = os.path.join(REPO, "output", "offline_eval_vis")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    pth = os.path.join(out_dir, "NopeSAC_instances_predictions.pth")
+    cont = os.path.join(out_dir, "continuous.pkl")
+    dsjson = write_pairs_json(pairs, os.path.join(work, "pairs.json"))
+    LAUNCHES.reset()
+
+    # the offline evaluator, three modes: AP with forked workers as a user
+    # runs the CLI, the others through its main in this process
+    base = ["--rcnn-cached-file", pth, "--dataset-json", dsjson, "--dataset-phase", "synthetic"]
+    offline_eval_cli(base + ["--optimized-dict-path", cont, "--evaluate", "AP",
+                             "--num-process", "2"], "AP, 2 workers", card, n)
+    for mode in ("camera", "matching"):
+        offline_eval_main(base + ["--optimized-dict-path", cont, "--evaluate", mode], mode, card, n)
+    args = types.SimpleNamespace(config_file="", rcnn_cached_file=pth, evaluate="AP",
+                                 num_process=1, camera_cached_file="", num_data=-1,
+                                 dataset_phase="synthetic", optimized_dict_path=cont,
+                                 dataset_json=dsjson, opts=[])
+    ev = offline_eval.Evaluator(args)
+    if not offline_eval.load_optimized_dict(ev, cont):
+        raise SmokeFailure("offline_eval: continuous.pkl not read")
+    t0 = time.perf_counter()
+    cam = ev.evaluate_camera(ev.optimized_dict)
+    cam_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    aps = offline_eval.ap_table(ev, 1)
+    ap_s = time.perf_counter() - t0
+    errs = {"T median err": abs(cam["median_tran_err"] - online["T median err"]),
+            "R median err": abs(cam["median_rot_err"] - online["R median err"]),
+            "T err < 1.0": abs(cam["tran_acc"] * 100 - online["T err < 1.0"]),
+            "R err < 30": abs(cam["rot_acc"] * 100 - online["R err < 30"])}
+    print(f"[offline] camera against phase 13's online numbers: {errs} (limit {CAM_TOL})")
+    print(f"[offline] AP rows {aps}")
+    print(f"[offline] Evaluator in process: camera {cam_s / n:.4f} s/pair, AP (one process) "
+          f"{ap_s / n:.4f} s/pair, host CPU of {card}")
+    if not all(e <= CAM_TOL for e in errs.values()):
+        raise SmokeFailure(f"offline camera numbers differ from the online ones: {errs}")
+    if list(aps) != list(AP_ROWS) or not all(math.isfinite(v) for v in aps.values()):
+        raise SmokeFailure(f"offline AP rows {aps}")
+
+    # the cached-camera branch: logits one-hot at the GT pose's bins, no
+    # best_camera for the odd pairs: their cameras are the bins' centres
+    bins = CameraBins(dataset="mp3d")
+    keys, tls, rls = [], [], []
+    for p in pairs:
+        keys.append(p["0"]["file_name"] + p["1"]["file_name"])
+        tls.append(np.eye(32)[bins.xyz2class(*p["rel_pose"]["position"])])
+        rls.append(np.eye(32)[bins.quat2class(*p["rel_pose"]["rotation"])])
+    cam_file = os.path.join(work, "cached_camera_logits.pkl")
+    with open(cam_file, "wb") as f:
+        pickle.dump({"keys": keys, "logits_sms": {"tran": np.stack(tls), "rot": np.stack(rls)},
+                     "gts": {"tran": [p["rel_pose"]["position"] for p in pairs],
+                             "rot": [p["rel_pose"]["rotation"] for p in pairs]}}, f)
+    with open(cont, "rb") as f:
+        half = pickle.load(f)
+    for idx in half:
+        if idx % 2:
+            half[idx]["best_camera"] = None
+    half_path = os.path.join(work, "continuous_half.pkl")
+    with open(half_path, "wb") as f:
+        pickle.dump(half, f)
+    for mode in ("AP", "camera"):  # one process: no fork of this process, which holds the card
+        offline_eval_main(base + ["--optimized-dict-path", half_path, "--camera-cached-file",
+                                  cam_file, "--evaluate", mode, "--num-process", "1"],
+                          f"{mode} cached camera", card, n)
+    ev = offline_eval.Evaluator(types.SimpleNamespace(**{**vars(args), "camera_cached_file":
+                                                         cam_file}))
+    for idx in range(1, n, 2):
+        got = ev.get_camera_info(idx, 0, 0)
+        gt = pairs[idx]["rel_pose"]
+        if not (np.array_equal(got["position"], bins.class2xyz(bins.xyz2class(*gt["position"])))
+                and np.array_equal(got["rotation"],
+                                   bins.class2quat(bins.quat2class(*gt["rotation"])))):
+            raise SmokeFailure(f"cached camera of pair {idx}: {got}, not the GT bins' centres")
+    print(f"[offline] cached camera: the {n // 2} pairs without best_camera decode the GT "
+          f"bins' centres")
+
+    # the visualisation: phase 13's artifacts and the planar scene's outputs,
+    # the synthetic renders written as the views' image files
+    for lib in ("PIL", "cv2"):
+        if importlib.util.find_spec(lib) is None:
+            raise SmokeFailure(f"the visualisation needs {lib}, which does not import here")
+    from PIL import Image
+
+    drawing = importlib.util.find_spec("matplotlib") is not None
+    print("[vis] PIL and OpenCV import; matplotlib "
+          + ("imports: engine/vis.py:vis_pair writes every file" if drawing else
+             "does not import: the phase writes the matching figure and the meshes "
+             "itself, without vis_pair's stitched-affinity figure (the one file that "
+             "needs matplotlib)"))
+    images = {}
+    for p in pairs[:VIS_PAIRS]:
+        for v in ("0", "1"):
+            images[p[v]["image_id"]] = os.path.join(work, f"{p[v]['image_id']}.png")
+            Image.fromarray(p[v]["image"]).save(images[p[v]["image_id"]])
+    preds = vis.load_predictions(pth)[:VIS_PAIRS]
+    with open(cont, "rb") as f:
+        ods = [od for _, od in sorted(pickle.load(f).items())][:VIS_PAIRS]
+    for p in preds:
+        for v in ("0", "1"):
+            p[v]["file_name"] = images[p[v]["image_id"]]
+    metas = [{"image_id0": f"planar{b}_0", "image_id1": f"planar{b}_1",
+              "file_name0": images[pairs[b]["0"]["image_id"]],
+              "file_name1": images[pairs[b]["1"]["image_id"]]} for b in range(VIS_PAIRS)]
+    planar_preds, planar_ods = [], []
+    for r in postprocess_batch(numpy_tree(planar_out), metas, h, w):
+        planar_preds.append({"0": r["0"], "1": r["1"], "pred_aff": r["pred_aff"],
+                             "camera_onePP": {"pred": r["camera_onePP"]}})
+        planar_ods.append({"best_camera": {"position": r["camera"]["tran"],
+                                           "rotation": r["camera"]["rot"]},
+                           "gt_camera": {"position": np.zeros(3),
+                                         "rotation": np.array([1.0, 0, 0, 0])},
+                           "best_assignment": r["pred_assignment"]})
+    sets = (("entry point", preds, ods, pairs), ("planar scene", planar_preds, planar_ods, None))
+    for what, ps, odicts, gts in sets:
+        out = os.path.join(work, "vis_" + what.replace(" ", "_"))
+        os.makedirs(out)
+        t0 = time.perf_counter()
+        n_files, planes = 0, []
+        for idx, (pred, od) in enumerate(zip(ps, odicts)):
+            gt_pair = None if gts is None else gts[idx]
+            if drawing:
+                meshes = vis.vis_pair(idx, pred, od, out, h, w, gt_pair=gt_pair,
+                                      one_plane_cams=True)
+            else:
+                meshes = vis_pair_without_affinity(idx, pred, od, out, h, w, gt_pair)
+            n_files += check_vis_files(out, idx, pred, meshes, drawing, gts is not None)
+            planes.append(len(meshes["scene_textured"]))
+        secs = time.perf_counter() - t0
+        print(f"[vis] {what}: {n_files} files for {len(ps)} pairs, textured planes per pair "
+              f"{planes}; {secs / len(ps):.3f} s/pair, host CPU of {card}")
+        if what == "planar scene" and min(planes) <= 2:
+            raise SmokeFailure(f"the planar scene's meshes hold {planes} planes per pair")
+    counts = LAUNCHES.snapshot()
+    if any(counts.values()):
+        raise SmokeFailure(f"phase 20 launched kernels: {counts}")
 
 
 def ablation_batches(cfg, n_batches, n_pairs, seed):
@@ -2347,7 +2647,8 @@ def main(argv=None):
         b4 = check_bottleneck(torch, dev, card)
         fused_counts, fused = run_fused_path(torch, dev, model, batches, outs, card)
         counts["bottleneck_tail"] = fused_counts["bottleneck_tail"]
-        run_entry_point(torch, dev, fused, planar_out, card)
+        entry = run_entry_point(torch, dev, fused, planar_out, card)
+        run_offline_eval_and_vis(card, entry, planar_out)
         bf16_counts = run_bf16_eval_path(torch, dev, model, fused, batches, card)
         b4["bf16"]["launches"] = bf16_counts["bottleneck_tail"]
         run_ablations(torch, dev, model, fused, card)

@@ -13,7 +13,8 @@ normalises them on the device) and targets are attached only with
 pose's quaternion is sign-canonical (w >= 0) unless `camera_cls_on`
 (MODEL.CAMERA_HEAD.CLASSIFICATION_ON: the camera bins fix the sign). The
 JAX mapper's `load_bins` (the pose's bins in the meta) has no counterpart:
-nothing reads them without a classification head.
+nothing reads them, the offline evaluator's cached-camera branch decodes
+bins through `data/cam_bins.py` itself.
 
 Images come from the pair dict (`data/synthetic.py` renders them) or from
 `file_name` (the reference jsons' MP3D prefix replaced by `root_dir`,
