@@ -174,8 +174,34 @@ Phases, in order; any failure exits non-zero before the last line:
      written, each OBJ's vertex and face counts those of its mesh. No
      kernel is launched. Prints each mode's and vis's seconds per pair,
      host figures.
+ 21. the ScanNet path from raw scans (`nopesac_torch/tools/synthetic_scans.py`
+     writes seeded 480x640 scenes in the ScanNet layout, 6-12 planes per
+     frame, 3-7 shared by consecutive frames, sparse-view pose gaps): (a)
+     `python -m nopesac_torch.tools.generate_scannetv2_data` once per split
+     with a --split-file, at least 16 train and 8 test pairs, its s/pair;
+     (b) `Trainer` on configs/train_scannet_step1.yaml as shipped (bf16) on
+     the generated split (DATASETS.ROOT_DIR), 16 pairs of 480x640 per step, 4
+     loader workers, 3 steps, from a seeded full model written as .pkl (the
+     overlay: every shared tensor the file's, the rest of the file
+     unexpected); (c) configs/train_scannet_step2.yaml (REFINE_ON) from step
+     1's model_final.pth for 2 steps, the weight chain checked, the eval hook
+     once over the 8 test pairs: in (b) and (c) every loss of the JAX
+     train_forward of the step finite, no skipped step, B3 3 launches per
+     step and B1/B2 once per hook batch; (d) `engine/test.py --eval-only` on
+     configs/inference_scannet.yaml (f32, unfused) with step 2's weights
+     over scannet_test: the artifacts written, B1 and B2 once per batch, no
+     B4; the offline evaluator's main in process in AP and camera modes
+     (five AP rows, finite camera errors) and `GeoConsistencyLoss.inference`
+     on the artifacts' planes and cameras (finite); (e) phase 10's one-pair
+     train step, card against CPU, on the first generated train pair whose
+     match does not tie on the CPU, through the ScanNet mapper at 96x128.
+     Prints each Trainer's time_per_iter_recent, loader
+     waits and peak memory, and the evaluation's pairs/s. Cut: the pairs (18
+     train and 8 test of a split's thousands) and the steps (3 and 2 of 30 k
+     and 10 k).
 Phases 11-13, 20, 15 and 18 run right after phase 7, while the eval model is
-on the card; phases 14, 16 and 19 run after phase 10, phase 17 after phase 14.
+on the card; phases 14, 16 and 19 run after phase 10, phase 17 after phase 14,
+phase 21 last.
 Phases 6, 7 and 12 hold the card to the CPU, or the fused path to the
 unfused one, as the CPU is held to JAX in tests/test_torch_slice.py: valid
 planes equal, labels agree on >= 99.9% of pixels, log-scores within 1.5e-3
@@ -190,7 +216,8 @@ batch: the sum over its 24 calls. The entries of B3 and B4 carry a "bf16"
 object with the same keys for their bf16 variant (B4's launches those of
 phase 15's fused path, B3's the bf16-logit launches counted apart in
 phase 16's REMAT-on run, where the model sends f32 logits and phase 16
-requires 0).
+requires 0). Each entry and its "bf16" object also carry "launches_scannet",
+the launches over phase 21's (b)-(d).
 
 Kernel times are CUDA-event means over many warm launches. `bound_ms` is the
 larger of bytes moved / 3.35 TB/s and operations / the peak rate of their
@@ -215,6 +242,7 @@ import copy
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -278,6 +306,15 @@ ABLATION_PAIRS = 8     # phase 18's EvalRunner.test
 DEPTH_TOL = 1e-4       # of max |ref|: depth0/depth1, tests/test_torch_ablations.py
 VIS_PAIRS = 4          # phase 20's visualised pairs of each artifact set
 AP_ROWS = ("all", "-offset", "-normal", "-mask", "-normal-offset")
+SCANNET_DIR = os.path.join(REPO, "output", "scannet_smoke")
+SCANNET_HW = (480, 640)
+SCANNET_PAIRS = 16        # SOLVER.IMS_PER_BATCH of phase 21's steps
+SCANNET_PLANES = (6, 12)  # planes per raw frame
+# per split: scenes, frames per scene, frame step, first seed (18 train
+# pairs, 8 test pairs: both orders of each test frame pair)
+SCANNET_SCENES = {"train": (3, 12, 20, 40), "test": (2, 4, 40, 50)}
+SCANNET_MIN_PAIRS = {"train": 16, "test": 8}
+SCANNET_STEPS = (3, 2)    # ScanNet step 1 and step 2
 
 
 class SmokeFailure(Exception):
@@ -873,6 +910,10 @@ TRAIN_LOSS_KEYS = sorted(
        "loss_trans_initCamRec", "loss_rot_randCamRecLBS_N1", "loss_trans_randCamRecLBS_N1"]
     + [f"loss_{k}_{b}" for b in ("initCamRef", "initRecCamRef", "initCamRef_Aux",
                                  "initRecCamRef_Aux") for k in _REF])
+# curriculum step 2 (train_mp3d_step2.yaml, train_scannet_step1.yaml): every
+# loss but the refinement's
+STEP2_LOSS_KEYS = sorted(k for k in TRAIN_LOSS_KEYS if not any(k.endswith(f"_{b}") for b in (
+    "initCamRef", "initRecCamRef", "initCamRef_Aux", "initRecCamRef_Aux")))
 TRAIN_MODULES = ("backbone", "sem_seg_head", "matching_head", "camera_head_list")
 # phases 9 and 14 train in f32 without REMAT, the settings of their earlier
 # measurements (the port ignored MODEL.REMAT before it had the bf16 policy)
@@ -1014,9 +1055,11 @@ def assignment_gap(cost, n_gt):
     return second - best
 
 
-def check_train_reference(torch, dev, opts=(), what="train reference 96x128"):
-    """Phase 10 (and, with `opts`, phase 19's variant of it): one train step
-    of one pair on the card and on the CPU from the same weights and batch."""
+def check_train_reference(torch, dev, opts=(), what="train reference 96x128", batches=None):
+    """Phase 10 (and, with `opts`, phase 19's variant of it; with `batches`,
+    collated CPU batches of one pair each, phase 21's: the first whose match
+    does not tie on the CPU): one train step of one pair on the card and on
+    the CPU from the same weights and batch."""
     from nopesac_torch.engine.train import TrainStep, build_train_model, synthetic_batches
     from nopesac_torch.losses import camera_losses
     from nopesac_torch.models.nopesac import AIM_RAND_POSES
@@ -1029,7 +1072,19 @@ def check_train_reference(torch, dev, opts=(), what="train reference 96x128"):
     separate_queries(torch, cpu_model, seed=1)
     card_model = build_train_model(cfg, device=dev)
     card_model.load_state_dict(cpu_model.state_dict())
-    batch = next(iter(synthetic_batches(cfg, 1, seed=5, n_planes=6, device="cpu")))
+    if batches is None:
+        batches = [next(iter(synthetic_batches(cfg, 1, seed=5, n_planes=6, device="cpu")))]
+    gaps = []
+    for batch in batches:
+        ref_match, costs, n_gt = detect_matches(torch, copy.deepcopy(cpu_model), batch)
+        gaps.append(min(assignment_gap(c[i], int(n_gt[i])) for c in costs
+                        for i in range(c.shape[0])))
+        if gaps[-1] >= MATCH_GAP:
+            break
+    else:
+        raise SmokeFailure(f"{what}: the optimal assignment's gaps {gaps} are below "
+                           f"{MATCH_GAP}, so the match can tie")
+    gap = gaps[-1]
     card_batch = {k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict)
                       else v.to(dev)) for k, v in batch.items()}
     b = batch["image0"].shape[0]
@@ -1037,12 +1092,7 @@ def check_train_reference(torch, dev, opts=(), what="train reference 96x128"):
     n_aim = b * max(AIM_RAND_POSES // b, 1)
     aim = [camera_losses.rand_aim_rot(gen, n_aim), camera_losses.rand_aim_trans(gen, n_aim)]
 
-    ref_match, costs, n_gt = detect_matches(torch, copy.deepcopy(cpu_model), batch)
     got_match, _, _ = detect_matches(torch, copy.deepcopy(card_model), card_batch)
-    gap = min(assignment_gap(c[i], int(n_gt[i])) for c in costs for i in range(c.shape[0]))
-    if gap < MATCH_GAP:
-        raise SmokeFailure(f"{what}: the optimal assignment's gap {gap:.2e} is below "
-                           f"{MATCH_GAP}, so the match can tie")
     if not all(torch.equal(g.cpu(), r) for g, r in zip(got_match, ref_match)):
         raise SmokeFailure(f"{what}: the match differs between the card and the CPU")
 
@@ -1063,7 +1113,8 @@ def check_train_reference(torch, dev, opts=(), what="train reference 96x128"):
     param_rel = (diff / sum(float(p.detach().pow(2).sum()) for p in cpu_params.values())) ** 0.5
     param_max = max(float((p.detach().cpu() - cpu_params[n].detach()).abs().max())
                     for n, p in card_model.named_parameters())
-    print(f"[{what}] card vs CPU: match equal on {len(ref_match)} levels (gap "
+    print(f"[{what}] card vs CPU: batch {len(gaps) - 1} of {len(batches)} (the gaps before it "
+          f"tie: {[f'{g:.2e}' for g in gaps[:-1]]}), match equal on {len(ref_match)} levels (gap "
           f"{gap:.2e}), {len(ref) - 3} losses, {len(bad)} outside tolerance, grad norm rel "
           f"{gn_rel:.2e}, params after {cfg.SOLVER.OPTIMIZER} rel {param_rel:.2e} (max |diff| "
           f"{param_max:.2e})")
@@ -1351,6 +1402,264 @@ def run_trainer(torch, dev, card, step_ms):
     # each checkpoint of the model and its AdamW state is ~0.9 GB
     for d in (out_dir, one_dir, two_dir):
         shutil.rmtree(d, ignore_errors=True)
+
+
+def scannet_generate(card):
+    """Phase 21 (a): seeded raw scenes in the ScanNet layout, then the port's
+    generator CLI once per split, as a user runs it. Returns the data root."""
+    import shutil
+
+    from nopesac_torch.tools.synthetic_scans import write_scene
+
+    shutil.rmtree(SCANNET_DIR, ignore_errors=True)
+    scans, root = os.path.join(SCANNET_DIR, "scans"), os.path.join(SCANNET_DIR, "data")
+    t0 = time.perf_counter()
+    n_frames = 0
+    for split, (n_scenes, frames, step, seed) in SCANNET_SCENES.items():
+        names = [f"scene{seed + i:04d}_00" for i in range(n_scenes)]
+        for i, name in enumerate(names):
+            write_scene(scans, name, frames, step, seed + i, size=SCANNET_HW,
+                        planes=SCANNET_PLANES)
+        n_frames += n_scenes * frames
+        with open(os.path.join(SCANNET_DIR, f"{split}.txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
+    print(f"[scannet] {n_frames} raw frames of {SCANNET_HW[0]}x{SCANNET_HW[1]} written in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for split, want in SCANNET_MIN_PAIRS.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "nopesac_torch.tools.generate_scannetv2_data",
+             "--scans-dir", scans, "--output-dir", root, "--split", split,
+             "--split-file", os.path.join(SCANNET_DIR, f"{split}.txt")],
+            cwd=REPO, capture_output=True, text=True, timeout=900)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise SmokeFailure(f"generator --split {split}: exit {proc.returncode}\n"
+                               f"{proc.stderr[-3000:]}")
+        with open(os.path.join(root, "scannet_json", f"cached_set_{split}V2.json")) as f:
+            n = len(json.load(f)["data"])
+        print(f"[scannet] generator --split {split}: {n} pairs, {secs:.2f} s, "
+              f"{secs / max(n, 1):.3f} s/pair (process start included), host CPU of {card}; "
+              f"{' | '.join(proc.stdout.splitlines()[-3:])}")
+        if n < want:
+            raise SmokeFailure(f"generator --split {split}: {n} pairs, fewer than {want}")
+    return root
+
+
+def scannet_cfg(path, out_dir, root, steps, eval_period, weights):
+    """A ScanNet curriculum config as shipped (the bf16 policy) at
+    SCANNET_HW with SCANNET_PAIRS pairs per step and 4 loader workers, on
+    the generated splits."""
+    return load_train_cfg(path, [
+        "SOLVER.IMS_PER_BATCH", str(SCANNET_PAIRS), "INPUT.IMAGE_SIZE", str(SCANNET_HW),
+        "DATASETS.ROOT_DIR", root, "DATALOADER.NUM_WORKERS", "4", "MODEL.WEIGHTS", weights,
+        "SOLVER.MAX_ITER", str(steps), "TEST.EVAL_PERIOD", str(eval_period),
+        "OUTPUT_DIR", out_dir])
+
+
+def scannet_train(torch, card, trainer, loss_keys, want, what):
+    """`trainer.train()` of phase 21 (b, c): every loss of `loss_keys` finite
+    in each metrics.json row, no skipped step, the eval hook (if any)
+    without error, model_final.pth written, and the launches `want` over the
+    whole run. Returns the launches."""
+    from nopesac_torch.utils.device import LAUNCHES
+
+    cfg = trainer.cfg
+    t0 = time.perf_counter()
+    trainer.loader  # the spawn pool: each worker is sent the mapper and the split
+    print(f"[scannet] {what}: {cfg.DATALOADER.NUM_WORKERS} loader workers over "
+          f"{len(trainer.loader.dataset)} pairs started in {time.perf_counter() - t0:.2f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    try:
+        trainer.train()
+    finally:
+        trainer.close()
+    secs = time.perf_counter() - t0
+    counts = LAUNCHES.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    if trainer.last_eval_error is not None:
+        raise SmokeFailure(f"{what}: the evaluation hook failed: {trainer.last_eval_error!r}")
+    with open(os.path.join(cfg.OUTPUT_DIR, "metrics.json")) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    loss_rows = [r for r in rows if "eval" not in r]
+    eval_rows = [r["eval"] for r in rows if "eval" in r]
+    last = cfg.SOLVER.MAX_ITER - 1
+    if [r["iteration"] for r in loss_rows] != [0, last]:
+        raise SmokeFailure(f"{what}: metrics.json loss rows {[r['iteration'] for r in loss_rows]}")
+    for r in loss_rows:
+        losses = {k: v for k, v in r.items() if k.startswith("loss")}
+        bad = sorted(k for k, v in r.items() if not math.isfinite(v))
+        if sorted(losses) != loss_keys or bad or r["skipped_nonfinite"] != 0:
+            raise SmokeFailure(f"{what}: row {r['iteration']} has non-finite {bad}, skipped "
+                               f"{r['skipped_nonfinite']}, or the loss keys "
+                               f"{sorted(set(losses) ^ set(loss_keys))} differ")
+    n_hooks = last // cfg.TEST.EVAL_PERIOD + 1 if cfg.TEST.EVAL_PERIOD > 0 else 0
+    if len(eval_rows) != n_hooks or not all(math.isfinite(v) for e in eval_rows
+                                            for v in e.values()):
+        raise SmokeFailure(f"{what}: {len(eval_rows)} eval rows (want {n_hooks}) or not finite")
+    if not os.path.exists(os.path.join(cfg.OUTPUT_DIR, "model_final.pth")):
+        raise SmokeFailure(f"{what}: model_final.pth not written")
+    waits = trainer.loop_times["loader_wait_s"]
+    hook = (f"evaluation hook {trainer.loop_times['eval_s'][0] * 1e3:.2f} ms over "
+            f"{trainer.last_eval_stats['pairs']} pairs ({trainer.last_eval_stats}); "
+            if n_hooks else "")
+    print(f"[scannet] {what}: {cfg.SOLVER.MAX_ITER} steps of {cfg.SOLVER.IMS_PER_BATCH} pairs "
+          f"at {cfg.INPUT.IMAGE_SIZE[0]}x{cfg.INPUT.IMAGE_SIZE[1]}, {secs:.2f} s in all; "
+          f"time_per_iter_recent {loss_rows[-1]['time_per_iter_recent'] * 1e3:.2f} ms/step; "
+          f"next(loader) blocked {[round(t * 1e3, 2) for t in waits]} ms per step; {hook}"
+          f"peak memory {peak / 2**30:.2f} GiB (max_memory_allocated); total loss "
+          f"{loss_rows[-1]['total_loss']:.4f} at step {last}; launches {counts}; on {card}")
+    if counts != want:
+        raise SmokeFailure(f"{what}: launches {counts}, want {want}")
+    return counts
+
+
+def scannet_geo_consistency(pth, opt):
+    """GeoConsistencyLoss.inference on the evaluation's plane predictions
+    and best cameras: both distances finite."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from nopesac_torch.tools.sparseplane_planeloss import GeoConsistencyLoss
+
+    preds = torch.load(pth, weights_only=False)
+    with open(opt, "rb") as f:
+        cont = pickle.load(f)
+    cams = [{k: np.asarray(v, np.float64) for k, v in cont[i]["best_camera"].items()}
+            for i in range(len(preds))]
+    loss = GeoConsistencyLoss()
+    for distance in ("l2", "normal"):
+        out, n1, n2 = loss.inference([p["0"] for p in preds], [p["1"] for p in preds], cams,
+                                     distance)
+        finite = {k: bool(np.isfinite(v).all()) for k, v in out.items()}
+        print(f"[scannet] GeoConsistencyLoss.inference {distance} over {len(preds)} pairs "
+              f"(planes per view {n1}, {n2}): { {k: v.shape for k, v in out.items()} } finite "
+              f"{finite}")
+        if not all(finite.values()):
+            raise SmokeFailure(f"GeoConsistencyLoss {distance}: non-finite distances")
+
+
+def run_scannet(torch, dev, card):
+    """Phase 21: the ScanNet path from raw scans, through the curriculum, to
+    the offline evaluation. Returns the launches of (b)-(d)."""
+    import contextlib
+    import io
+    import shutil
+
+    from nopesac_torch.data import datasets
+    from nopesac_torch.data.mapper import PairMapper, collate
+    from nopesac_torch.data.packing import batch_to_device
+    from nopesac_torch.data.registry import DatasetCatalog
+    from nopesac_torch.engine import test as test_entry
+    from nopesac_torch.engine.predict import build_model_from_cfg
+    from nopesac_torch.engine.trainer import Trainer
+    from nopesac_torch.utils.device import LAUNCHES
+
+    # (a) the splits
+    root = scannet_generate(card)
+    datasets.register_builtin(root)  # what the CLIs do with DATASETS.ROOT_DIR
+    n_test = len(DatasetCatalog.get("scannet_test"))
+    n_eval = math.ceil(n_test / N_PAIRS)
+    total = launches_want()
+
+    # (b) ScanNet step 1 from a seeded full (MP3D) model written as .pkl
+    mp3d = load_train_cfg(CONFIG, ["MODEL.WEIGHTS", "", "INPUT.IMAGE_SIZE", str(SCANNET_HW)])
+    sd = build_model_from_cfg(mp3d, device="cpu", seed=21).state_dict()
+    pkl = os.path.join(SCANNET_DIR, "mp3d_NopeSAC.pkl")
+    torch.save({"model": {**sd, "criterion.empty_weight": torch.tensor([1.0, 0.1])}}, pkl)
+    step_cfg = os.path.join(REPO, "configs", "train_scannet_step{}.yaml")
+    one = Trainer(scannet_cfg(step_cfg.format(1), os.path.join(SCANNET_DIR, "step1"), root,
+                              SCANNET_STEPS[0], 0, pkl), device=dev)
+    sd1 = one.model.state_dict()
+    check_weight_chain(torch, one, pkl, sd, [], sorted(k for k in sd if k not in sd1),
+                       "MP3D .pkl -> ScanNet step 1")
+    steps = SCANNET_STEPS[0]
+    counts = scannet_train(torch, card, one, STEP2_LOSS_KEYS,
+                           launches_want(mask_loss_fwd=3 * steps, mask_loss_bwd=3 * steps),
+                           "ScanNet step 1")
+    total = {k: total[k] + counts[k] for k in total}
+    step1 = os.path.join(one.cfg.OUTPUT_DIR, "model_final.pth")
+    del one, sd1
+    torch.cuda.empty_cache()
+
+    # (c) ScanNet step 2 (REFINE_ON) from step 1's model_final.pth, the eval
+    # hook at its last step over the test split
+    sd1 = torch.load(step1, map_location="cpu", weights_only=False)["model"]
+    steps = SCANNET_STEPS[1]
+    two = Trainer(scannet_cfg(step_cfg.format(2), os.path.join(SCANNET_DIR, "step2"), root,
+                              steps, steps, step1), device=dev)
+    new = sorted(k for k in two.model.state_dict() if k not in sd1)
+    check_weight_chain(torch, two, step1, sd1, new, [], "ScanNet step 1 -> step 2")
+    counts = scannet_train(torch, card, two, TRAIN_LOSS_KEYS,
+                           launches_want(mask_loss_fwd=3 * steps, mask_loss_bwd=3 * steps,
+                                         select_maps=n_eval, sinkhorn=n_eval), "ScanNet step 2")
+    total = {k: total[k] + counts[k] for k in total}
+    step2 = os.path.join(two.cfg.OUTPUT_DIR, "model_final.pth")
+    del two, sd1
+    torch.cuda.empty_cache()
+
+    # (d) `engine/test.py --eval-only` on inference_scannet.yaml (f32,
+    # unfused) with step 2's weights, then the offline evaluator and the
+    # GeoConsistency tool on its artifacts
+    eval_dir = os.path.join(SCANNET_DIR, "eval")
+    out = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = test_entry.main([
+            "--config-file", os.path.join(REPO, "configs", "inference_scannet.yaml"),
+            "--eval-only", "--device", dev.type, "MODEL.WEIGHTS", step2,
+            "DATASETS.ROOT_DIR", root, "INPUT.IMAGE_SIZE", str(SCANNET_HW),
+            "TEST.EVAL_FULL_SCENE", "True",
+            "OUTPUT_DIR", eval_dir])
+    secs = time.perf_counter() - t0
+    counts = LAUNCHES.snapshot()
+    total = {k: total[k] + counts[k] for k in total}
+    line = json.loads(out.getvalue().splitlines()[-1])
+    pth = os.path.join(eval_dir, "NopeSAC_instances_predictions.pth")
+    opt = os.path.join(eval_dir, "continuous.pkl")
+    print(f"[scannet] engine/test.py --eval-only on inference_scannet.yaml over {n_test} pairs: "
+          f"{secs:.2f} s with the model build and load; eval_stats {line['eval_stats']}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {counts}; on "
+          f"{card}")
+    want = launches_want(select_maps=n_eval, sinkhorn=n_eval)
+    if rc != 0 or counts != want or not (os.path.exists(pth) and os.path.exists(opt)):
+        raise SmokeFailure(f"ScanNet evaluation: exit {rc}, launches {counts} (want {want}), "
+                           f"or the artifacts are not written")
+    bad = sorted(k for k, v in line["results"].items() if not math.isfinite(v))
+    if bad or line["eval_stats"]["pairs"] != n_test:
+        raise SmokeFailure(f"ScanNet evaluation: non-finite {bad} or {line['eval_stats']}")
+    flags = ["--rcnn-cached-file", pth, "--optimized-dict-path", opt,
+             "--dataset-phase", "scannet_test"]
+    offline_eval_main(flags + ["--evaluate", "AP", "--num-process", "1"], "ScanNet AP", card,
+                      n_test)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        offline_eval_main(flags + ["--evaluate", "camera"], "ScanNet camera", card, n_test)
+    print(out.getvalue(), end="")
+    med = re.search(r"Median Error \[tran, rot\]:\s*([^,;\s]+),\s*([^,;\s]+)", out.getvalue())
+    errs = [float(x) for x in med.groups()] if med else []
+    if len(errs) != 2 or not all(math.isfinite(e) for e in errs):
+        raise SmokeFailure(f"ScanNet offline camera errors {errs} not finite")
+    scannet_geo_consistency(pth, opt)
+
+    # (e) one generated pair at 96x128 through the mapper: the card against the CPU
+    cfg = load_train_cfg(SMOKE_CONFIG, [])
+    mapper = PairMapper(cfg.MODEL.SEM_SEG_HEAD.NUM_OBJECT_QUERIES, tuple(cfg.INPUT.IMAGE_SIZE),
+                        cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD, root_dir=root,
+                        dataset_kind="scannet")
+    batches = [batch_to_device(collate([mapper(pair)]), "cpu")
+               for pair in DatasetCatalog.get("scannet_train")]
+    check_train_reference(torch, dev, what="ScanNet pair 96x128", batches=batches)
+    shutil.rmtree(SCANNET_DIR, ignore_errors=True)  # ~0.9 GB per checkpoint
+    print(f"[scannet] launches over (b)-(d): {total}")
+    return total
 
 
 def rank_cfg(out_dir):
@@ -2666,14 +2975,19 @@ def main(argv=None):
         check_bf16_train_reference(torch, dev)
         run_trainer(torch, dev, card, step_ms)
         run_ranks(torch, card)
+        scannet_counts = run_scannet(torch, dev, card)
         kernels.append(b4)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     for k in kernels:
         k["launches"] = counts[k["name"]]
+        k["launches_scannet"] = scannet_counts[k["name"]]
+        if k["name"] == "bottleneck_tail":  # one counter for both dtypes
+            k["bf16"]["launches_scannet"] = scannet_counts["bottleneck_tail"]
         if k["name"].startswith("mask_loss"):  # the bf16-logit variant on phase 16's path
             k["bf16"]["launches"] = bf16_train_counts[k["name"] + "_bf16"]
+            k["bf16"]["launches_scannet"] = scannet_counts[k["name"] + "_bf16"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -2,11 +2,15 @@
 the training checkpoints that `--resume` reads (counterpart of the JAX
 package's `engine/checkpoint.py` and of `Trainer._load_weights`).
 
-Weights (`load_weights`) come from a torch `.pth` file: a state_dict, or
-detectron2's `{"model": state_dict, ...}`. The tensors that are not model
-weights (`NON_PARAMETER_SUFFIXES`: the reference criterion's
-`empty_weight`, BatchNorm's `num_batches_tracked`) are dropped first, as
-the JAX package's importer leaves them unconsumed. Evaluation loads the rest
+Weights (`load_weights`) come from a file that `torch.load` reads, named
+`.pth` or `.pkl` as the JAX trainer accepts them: a state_dict, or
+detectron2's `{"model": state_dict, ...}`. The reference's v1 key layout is
+migrated first (`migrate_legacy_keys`). The tensors that are not model
+weights are dropped: `NON_PARAMETER_SUFFIXES` (the reference criterion's
+`empty_weight`, BatchNorm's `num_batches_tracked`) silently, and the v1
+pixel-decoder keys the migration moves under `sem_seg_head.pixel_decoder.`
+(neither model has that module) listed in the report's "dropped", as the
+JAX package's importer leaves both unconsumed. Evaluation loads the rest
 strictly: any other missing or unexpected key raises. Training (MODEL.WEIGHTS
 of curriculum step N+1 naming step N's `model_final.pth`) overlays the file
 on the model by key and shape, as `merge_pytree` does: keys only in the model
@@ -38,21 +42,47 @@ from ..parallel.dist import barrier, is_main_process
 logger = logging.getLogger(__name__)
 
 NON_PARAMETER_SUFFIXES = ("criterion.empty_weight", "num_batches_tracked")
+WEIGHT_SUFFIXES = (".pth", ".pkl")
+LEGACY_PIXEL_DECODER = "sem_seg_head.pixel_decoder."
+# the sem_seg_head children of the current layout (planeTR_head.py:26-48)
+_HEAD_CHILDREN = ("input_proj", "context_SA", "query_embed", "context2plane_decoder", "top_down",
+                  "plane_embedding", "pixel_embedding", "plane_prob", "plane_param",
+                  "plane_center", "pixel_plane_center", "depth", "position_embedding",
+                  "pixel_decoder")
 MARKER = "last_checkpoint"
 
 
-def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """The model tensors of a `.pth` checkpoint on the CPU, without the
-    non-parameter keys."""
-    if not path.endswith(".pth"):
-        raise NotImplementedError(f"MODEL.WEIGHTS must name a torch .pth checkpoint, got {path}")
+def migrate_legacy_keys(state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The reference's key migration of v1 checkpoints (planeTR_head.py:26-48):
+    a v1 file stored the pixel decoder's weights directly under
+    `sem_seg_head.`; they move under `sem_seg_head.pixel_decoder.`."""
+    out = {}
+    for k, v in state.items():
+        if (k.startswith("sem_seg_head.") and ".predictor" not in k
+                and ".pixel_decoder." not in k
+                and not k.startswith(tuple(f"sem_seg_head.{c}" for c in _HEAD_CHILDREN))):
+            k = k.replace("sem_seg_head.", LEGACY_PIXEL_DECODER)
+        out[k] = v
+    return out
+
+
+def read_state_dict(path: str) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """The model tensors of a `.pth` or `.pkl` checkpoint on the CPU, with
+    the v1 keys migrated and the non-parameter keys left out, and the v1
+    pixel-decoder keys that were left out."""
+    if not path.endswith(WEIGHT_SUFFIXES):
+        raise NotImplementedError(
+            f"MODEL.WEIGHTS must name a torch .pth or .pkl checkpoint, got {path}")
     if not os.path.exists(path):
         raise FileNotFoundError(f"MODEL.WEIGHTS not found: {path}")
     state = torch.load(path, map_location="cpu", weights_only=False)
     if "model" in state:
         state = state["model"]
-    return {k: torch.as_tensor(v) for k, v in state.items()
-            if not k.endswith(NON_PARAMETER_SUFFIXES)}
+    state = migrate_legacy_keys(state)
+    dropped = sorted(k for k in state if k.startswith(LEGACY_PIXEL_DECODER))
+    kept = {k: torch.as_tensor(v) for k, v in state.items()
+            if not k.endswith(NON_PARAMETER_SUFFIXES) and not k.startswith(LEGACY_PIXEL_DECODER)}
+    return kept, dropped
 
 
 def overlay_state_dict(template: Mapping[str, torch.Tensor], loaded: Mapping[str, torch.Tensor]
@@ -80,13 +110,16 @@ def _listed(keys: List[str]) -> str:
 
 
 def load_weights(model: torch.nn.Module, path: str, strict: bool = True) -> Dict[str, List[str]]:
-    """Load the `.pth` file at `path` into `model`: strictly (evaluation), or
-    as an overlay (training). Returns {"missing": [...], "unexpected": [...]},
-    empty after a strict load."""
-    state = read_state_dict(path)
+    """Load the checkpoint at `path` into `model`: strictly (evaluation), or
+    as an overlay (training). Returns {"missing": [...], "unexpected": [...],
+    "dropped": [...]}, the first two empty after a strict load."""
+    state, dropped = read_state_dict(path)
+    if dropped:
+        logger.warning("MODEL.WEIGHTS: %d v1 pixel-decoder keys dropped (no such module): %s",
+                       len(dropped), _listed(dropped))
     if strict:
         model.load_state_dict(state, strict=True)
-        return {"missing": [], "unexpected": []}
+        return {"missing": [], "unexpected": [], "dropped": dropped}
     merged, missing, unexpected = overlay_state_dict(model.state_dict(), state)
     model.load_state_dict(merged, strict=True)
     if missing:
@@ -95,7 +128,7 @@ def load_weights(model: torch.nn.Module, path: str, strict: bool = True) -> Dict
     if unexpected:
         logger.warning("MODEL.WEIGHTS: %d checkpoint-only keys ignored: %s", len(unexpected),
                        _listed(unexpected))
-    return {"missing": missing, "unexpected": unexpected}
+    return {"missing": missing, "unexpected": unexpected, "dropped": dropped}
 
 
 class Checkpointer:

@@ -137,6 +137,17 @@ def iou(dt: List[RLE], gt: List[RLE], iscrowd=None) -> np.ndarray:
     return out
 
 
+def merge(rles: List[RLE], intersect: bool = False) -> RLE:
+    """Union (or intersection) of masks, like pycocotools merge."""
+    if not rles:
+        return {"size": [0, 0], "counts": b""}
+    m = decode(rles[0]).astype(bool)
+    for r in rles[1:]:
+        other = decode(r).astype(bool)
+        m = m & other if intersect else m | other
+    return encode(m)
+
+
 def poly_to_mask(polys: List[Sequence[float]], h: int, w: int) -> np.ndarray:
     """Polygons [x0, y0, x1, y1, ...] -> binary mask by scanline fill
     (pycocotools frPoly equivalent, PIL-backed)."""

@@ -1,5 +1,6 @@
-"""Package rules of the port: it imports torch and never JAX, flax or the
-JAX package (nor PIL, matplotlib or OpenCV where a module is imported); its
+"""Package rules of the port: it imports torch and never JAX, flax, the
+JAX package or the repo's `tools/` (nor PIL, matplotlib, OpenCV or
+scipy.ndimage where a module is imported); its
 entry points default to CUDA; its config reads the repo's
 yaml files like the JAX package's does; its CLIs run on the CPU."""
 import json
@@ -41,13 +42,17 @@ def test_importing_every_module_loads_no_jax():
             "nopesac_torch.utils.tb_writer", "nopesac_torch.utils.np_geometry",
             "nopesac_torch.utils.mesh", "nopesac_torch.data.cam_bins",
             "nopesac_torch.models.camera_branch", "nopesac_torch.engine.offline_eval",
-            "nopesac_torch.engine.vis", "nopesac_torch.visualization.vis2d"} <= set(mods)
-    # nor the drawing libraries: PIL and matplotlib load inside the functions that draw
+            "nopesac_torch.engine.vis", "nopesac_torch.visualization.vis2d",
+            "nopesac_torch.tools.generate_scannetv2_data",
+            "nopesac_torch.tools.sparseplane_planeloss",
+            "nopesac_torch.tools.synthetic_scans"} <= set(mods)
+    # nor the image libraries: PIL, matplotlib, OpenCV and scipy.ndimage load
+    # inside the functions that use them
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
-            "'nopesac_tpu', 'PIL', 'matplotlib', 'cv2'))\n"
+            "'nopesac_tpu', 'tools', 'PIL', 'matplotlib', 'cv2') or m.startswith('scipy.ndimage'))\n"
             "print(len(sys.modules), bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = SUBPROCESS_ENV

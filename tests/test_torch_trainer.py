@@ -132,7 +132,8 @@ def test_released_checkpoint_keys_load_strictly(small_state_dicts, tmp_path):
     torch.save({"model": {**sd, **extra}}, tmp_path / "released.pth")
     model = build_model_from_cfg(_cfg(get_cfg, tmp_path), device="cpu", seed=7)
     assert load_weights(model, str(tmp_path / "released.pth")) == {"missing": [],
-                                                                   "unexpected": []}
+                                                                   "unexpected": [],
+                                                                   "dropped": []}
     for k, v in model.state_dict().items():
         assert torch.equal(v, sd[k]), k
     for bad in ({**sd, "criterion.other_weight": torch.ones(2)},
@@ -188,7 +189,7 @@ def test_overlay_reports_like_merge_pytree(small_state_dicts, tmp_path):
     torch.save({"model": loaded}, tmp_path / "step1.pth")
     model = build_model_from_cfg(_cfg(get_cfg, tmp_path), device="cpu", seed=0)
     report = load_weights(model, str(tmp_path / "step1.pth"), strict=False)
-    assert report == {"missing": missing, "unexpected": unexpected}
+    assert report == {"missing": missing, "unexpected": unexpected, "dropped": []}
     os.remove(tmp_path / "step1.pth")
 
 

@@ -103,7 +103,8 @@ def test_port_model_loads_strictly(state_dict, tmp_path):
     path = tmp_path / "released.pth"
     torch.save({"model": {**state_dict, **extra}}, path)
     model = build_model_from_cfg(cfg, device="cpu", seed=3)
-    assert load_weights(model, str(path), strict=True) == {"missing": [], "unexpected": []}
+    assert load_weights(model, str(path), strict=True) == {"missing": [], "unexpected": [],
+                                                            "dropped": []}
     for k, v in model.state_dict().items():
         assert torch.equal(v, state_dict[k]), k
     os.remove(path)
@@ -187,7 +188,8 @@ def test_depth_layers_round_trip_and_load_strictly(depth_trees, tmp_path):
     cfg.MODEL.DEPTH_ON = True
     model = build_model_from_cfg(cfg, device="cpu", seed=2)
     assert sorted(model.state_dict()) == sorted(sd)
-    assert load_weights(model, str(path), strict=True) == {"missing": [], "unexpected": []}
+    assert load_weights(model, str(path), strict=True) == {"missing": [], "unexpected": [],
+                                                            "dropped": []}
     for k, v in model.state_dict().items():
         assert torch.equal(v, sd[k]), k
     cfg.MODEL.DEPTH_ON = False
