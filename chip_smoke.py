@@ -59,8 +59,12 @@ Phases, in order; any failure exits non-zero before the last line:
      bf16 bytes and the dense bf16 tensor-core rate; both timed beside the
      unfused sequence the backbone runs without B4 in that dtype (cuDNN
      1x1 conv, then the ATen affine, add and ReLU); every f32 eval shape must
-     take the vec variant, whose config (BM, Cin split, blocks) is printed
-     per shape with each variant's registers, shared memory and spills;
+     take the vec variant and every bf16 one (and the JAX test's) the wgmma
+     variant (`ops/csrc/bottleneck_wgmma.cu`), two bf16 runs bit-equal, the
+     bf16 eval shapes also within one ulp of the exact (f64) product; the
+     config (BM, BN, X's load path, Cin split, blocks) is printed per shape
+     with each variant's registers, shared memory and spills, and the HGMMA
+     count of the wgmma library's SASS (cuobjdump -sass), which must be > 0;
  12. fused-tail eval path: the phase-5 model and batches with
      `fuse_tail=True`: B4's counter rises by exactly 24 per batch (12
      identity blocks, two calls each), res2..res5 match the unfused backbone
@@ -95,10 +99,13 @@ Phases, in order; any failure exits non-zero before the last line:
      unfused and with the fused-tail backbone: output dtypes as the policy
      says (cameras and the refinement's hypotheses bf16, log-scores, plane
      parameters and scores f32), B1 and B2 once per batch and B4 24 times
-     per fused batch; the card against the CPU at 96x128 at the bf16 rule of
-     tests/test_torch_bf16_eval.py with the card's own bf16-vs-f32 deviation
-     in place of JAX's; the bf16 eval steps timed against phase 5's and 12's
-     f32 ones in alternating rounds;
+     per fused batch; the fused bf16 backbone against the unfused f32 one per
+     stage (res2..res5) at full width, seeded and with trained-like BN
+     statistics: max |fused bf16 - f32| <= max(1.5 max |unfused bf16 - f32|,
+     one bf16 ulp of max |f32|); the card against the CPU at 96x128 at the
+     bf16 rule of tests/test_torch_bf16_eval.py with the card's own
+     bf16-vs-f32 deviation in place of JAX's; the bf16 eval steps timed
+     against phase 5's and 12's f32 ones in alternating rounds;
  16. bf16 train path: configs/train_mp3d_step3.yaml as shipped (bf16 compute
      and block interiors, REMAT on) on phase 9's batches, a warm-up and 3
      steps: every loss finite, no skipped step, B3 3 f32-logit launches per
@@ -219,7 +226,9 @@ phase 16's REMAT-on run, where the model sends f32 logits and phase 16
 requires 0). Each entry and its "bf16" object also carry "launches_scannet",
 the launches over phase 21's (b)-(d).
 
-Kernel times are CUDA-event means over many warm launches. `bound_ms` is the
+Kernel times are CUDA-event means over many warm launches (B4's with the
+launches queued behind a sleep kernel, so that they time the device and not
+the wrapper's host work). `bound_ms` is the
 larger of bytes moved / 3.35 TB/s and operations / the peak rate of their
 type: 67 TFLOP/s f32, 989 TFLOP/s dense bf16 on the tensor cores (H100 SXM
 published peaks).
@@ -228,8 +237,9 @@ published peaks).
 
 times B1 and B2 of the port in DIR (a checkout of any of its commits, e.g. a
 parent unpacked with `git archive`) on phase 3's and 4's inputs, through the
-functions the eval path calls, with this script's timing code, and prints
-one JSON line; run it for a parent and a change in turns in one call.
+functions the eval path calls, and B4 in bf16 at the eight eval shapes on
+phase 11's inputs, with this script's timing code, and prints one JSON line;
+run it for a parent and a change in turns in one call.
 
     python3 chip_smoke.py --ranks N
 
@@ -243,6 +253,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -284,6 +295,7 @@ B4_STAGES = (("res2", 120, 160, 256, 64, 2), ("res3", 60, 80, 512, 128, 3),
              ("res4", 30, 40, 1024, 256, 5), ("res5", 15, 20, 2048, 512, 2))
 B4_LAUNCHES = 2 * sum(s[-1] for s in B4_STAGES)  # 24 per eval batch
 B4_F32_TOL = 1e-5  # of max |ref|: f32 sums over Cin in another order
+QUEUE_CYCLES = 40_000_000  # ~20 ms of sleep kernel at the H100's clock, > the host's enqueue
 BF16_ULP = 2.0 ** -7
 # losses held at their decoder levels' bf16 noise where their own lies under
 # the floor (tests/test_torch_bf16_train.py:LEVEL_NOISE gives the reasons)
@@ -342,12 +354,18 @@ def launches_want(**counts):
     return {n: counts.get(n, 0) for n in KERNEL_NAMES}
 
 
-def cuda_ms(torch, fn, warm=3, iters=20):
+def cuda_ms(torch, fn, warm=3, iters=20, queued=False):
+    """CUDA-event ms per call over `iters` warm calls. `queued` holds the
+    stream in a sleep kernel while the host enqueues the calls, so that the
+    events time the device's back-to-back work even where a call takes the
+    device less time than its wrapper takes the host (B4 in bf16)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -1944,10 +1962,10 @@ def check_bottleneck(torch, dev, card):
                 return F.relu(y + res) if residual else F.relu(y)
 
             ms = cuda_ms(torch, lambda: bottleneck.conv1x1_bn_act_cuda(
-                x, wt, scale, shift, residual=res), iters=20)
+                x, wt, scale, shift, residual=res), iters=20, queued=True)
             plain_ms = cuda_ms(torch, lambda: bottleneck.conv1x1_bn_act_plain(
-                x, wt, scale, shift, residual=res), warm=2, iters=5)
-            unfused_ms = cuda_ms(torch, unfused, iters=20)
+                x, wt, scale, shift, residual=res), warm=2, iters=5, queued=True)
+            unfused_ms = cuda_ms(torch, unfused, iters=20, queued=True)
             bms, by = bound_ms(*b4_cost(b, cin, co, h * w, residual))
             rows.append({"shape": f"{stage} {cin}->{co}{' +res' if residual else ''}",
                          "P": b * h * w, "ms": ms, "plain_ms": plain_ms, "unfused_ms": unfused_ms,
@@ -1972,6 +1990,8 @@ def check_bottleneck(torch, dev, card):
                                              torch.bfloat16)
         got = bottleneck.conv1x1_bn_act_cuda(x, wt, scale, shift, residual=res, relu=relu).float()
         variant = bottleneck.last_config["variant"]
+        if variant != "wgmma":
+            raise SmokeFailure(f"B4 bf16 took its {variant} variant at the JAX test's shape")
         ref = bottleneck.conv1x1_bn_act_plain(x, wt, scale, shift, residual=res, relu=relu).float()
         torch.cuda.synchronize()
         diff, lim = (got - ref).abs(), BF16_ULP * ref.abs() + 1e-6
@@ -1987,6 +2007,10 @@ def check_bottleneck(torch, dev, card):
                                (torch.bfloat16, 128, "scalar")):
         print(f"[B4 bottleneck_tail] {variant} {str(dtype)[6:]} BM {bm}: "
               f"{bottleneck.kernel_attributes(dtype, bm, variant)} (cudaFuncGetAttributes)")
+    for x_load in ("tma", "cp.async"):
+        print(f"[B4 bottleneck_tail] wgmma bfloat16 BM 64, X by {x_load}: "
+              f"{bottleneck.kernel_attributes(torch.bfloat16, 64, 'wgmma', x_load)} "
+              f"(cudaFuncGetAttributes)")
     by = "bytes" if by_count["bytes"] > by_count["operations"] else "operations"
     print(f"[B4 bottleneck_tail] per eval batch ({B4_LAUNCHES} calls): kernel {total['ms']:.4f} "
           f"ms, plain {total['plain_ms']:.4f} ms, unfused cuDNN+ATen {total['unfused_ms']:.4f} "
@@ -2000,16 +2024,58 @@ def check_bottleneck(torch, dev, card):
             "bf16": {k: v for k, v in bf16.items() if k != "max_diff_over_limit"}}
 
 
+def b4_exact(torch, x, wt, scale, shift, res, relu=True):
+    """B4's function in f64 on the card, rounded once to bf16: the exact
+    product of the bf16 inputs, against which the kernel and its plain
+    version are both held to one bf16 ulp."""
+    b, cin = x.shape[:2]
+    acc = torch.matmul(wt.reshape(wt.shape[0], -1).to(torch.bfloat16).double(),
+                       x.reshape(b, cin, -1).double())
+    acc = acc * scale.double()[:, None] + shift.double()[:, None]
+    if res is not None:
+        acc = acc + res.reshape(acc.shape).double()
+    if relu:
+        acc = torch.relu(acc)
+    return acc.to(torch.bfloat16).reshape(b, wt.shape[0], *x.shape[2:])
+
+
+def outside_ulp(torch, got, ref):
+    """Outputs of `got` outside one bf16 ulp (2^-7 |ref| + 1e-6) of `ref`, and
+    the largest |diff| over that limit."""
+    diff, lim = (got.float() - ref.float()).abs(), BF16_ULP * ref.float().abs() + 1e-6
+    return int((diff > lim).sum()), float((diff / lim).max()), float(diff.max())
+
+
+def hgmma_count():
+    """HGMMA instructions (Hopper's warpgroup MMA) in the SASS of the built
+    bf16 B4 library, by the toolkit's cuobjdump."""
+    from nopesac_torch.ops import _build
+
+    lib = _build._build_dir() / "libbottleneck_wgmma.so"
+    tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise SmokeFailure(f"cuobjdump -sass {lib} failed: {out.stderr.strip()[:500]}")
+    return len(re.findall(r"\bHGMMA\.", out.stdout))
+
+
 def check_bottleneck_bf16(torch, dev, card):
-    """B4 in bf16 at the eight eval shapes: within one bf16 ulp of its plain
-    version (2^-7 |ref| + 1e-6), timed beside the bf16 sequence the unfused
-    backbone runs (cuDNN 1x1 conv, then the ATen affine, add and ReLU), its
-    bound at bf16 bytes and the dense bf16 tensor-core rate."""
+    """B4 in bf16 at the eight eval shapes: the wgmma variant, within one bf16
+    ulp (2^-7 |ref| + 1e-6) of its plain version and of the exact product,
+    bit-equal on a second run,
+    timed beside the bf16 sequence the unfused backbone runs (cuDNN 1x1 conv,
+    then the ATen affine, add and ReLU), its bound at bf16 bytes and the
+    dense bf16 tensor-core rate; the HGMMA count of the built library."""
     from nopesac_torch.ops import bottleneck
 
     F = torch.nn.functional
     bf = torch.bfloat16
     b = 2 * N_PAIRS
+    hgmma = hgmma_count()
+    print(f"[B4 bottleneck_tail] bf16 wgmma variant: {hgmma} HGMMA instructions in the SASS of "
+          f"libbottleneck_wgmma.so (cuobjdump -sass)")
+    if hgmma == 0:
+        raise SmokeFailure("the bf16 B4 library has no HGMMA instruction: no tensor-core product")
     total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "unfused_ms": 0.0}
     by_count = {"bytes": 0, "operations": 0}
     worst, worst_ulps, rows = 0.0, 0.0, []
@@ -2019,14 +2085,23 @@ def check_bottleneck_bf16(torch, dev, card):
                                                  residual, bf)
             got = bottleneck.conv1x1_bn_act_cuda(x, wt, scale, shift, residual=res)
             cfg = dict(bottleneck.last_config)
+            again = bottleneck.conv1x1_bn_act_cuda(x, wt, scale, shift, residual=res)
             ref = bottleneck.conv1x1_bn_act_plain(x, wt, scale, shift, residual=res)
             torch.cuda.synchronize()
-            diff, lim = (got.float() - ref.float()).abs(), BF16_ULP * ref.float().abs() + 1e-6
-            over, ulps = int((diff > lim).sum()), float((diff / lim).max())
-            worst, worst_ulps = max(worst, float(diff.max())), max(worst_ulps, ulps)
-            if over:
-                raise SmokeFailure(f"B4 kernel (bf16) disagrees with its plain version at {stage} "
-                                   f"{cin}->{co}: {over} outside one bf16 ulp")
+            shape = f"{stage} {cin}->{co}{' +res' if residual else ''}"
+            if cfg["variant"] != "wgmma":
+                raise SmokeFailure(f"B4 bf16 took its {cfg['variant']} variant at {shape}; every "
+                                   f"eval shape must take the wgmma one")
+            if not torch.equal(got, again):
+                raise SmokeFailure(f"B4 bf16 at {shape}: two runs differ")
+            over, ulps, dmax = outside_ulp(torch, got, ref)
+            worst, worst_ulps = max(worst, dmax), max(worst_ulps, ulps)
+            exact = b4_exact(torch, x, wt, scale, shift, res)
+            over_x, ulps_x, _ = outside_ulp(torch, got, exact)
+            plain_x, plain_ulps_x, _ = outside_ulp(torch, ref, exact)
+            if over or over_x:
+                raise SmokeFailure(f"B4 kernel (bf16) at {shape}: {over} outputs outside one bf16 "
+                                   f"ulp of its plain version, {over_x} of the exact product")
             w16, s16, t16 = wt.to(bf), scale.to(bf)[None, :, None, None], shift.to(bf)[
                 None, :, None, None]
 
@@ -2035,34 +2110,40 @@ def check_bottleneck_bf16(torch, dev, card):
                 return F.relu(y + res) if residual else F.relu(y)
 
             ms = cuda_ms(torch, lambda: bottleneck.conv1x1_bn_act_cuda(
-                x, wt, scale, shift, residual=res), iters=20)
+                x, wt, scale, shift, residual=res), iters=20, queued=True)
             plain_ms = cuda_ms(torch, lambda: bottleneck.conv1x1_bn_act_plain(
-                x, wt, scale, shift, residual=res), warm=2, iters=5)
-            unfused_ms = cuda_ms(torch, unfused, iters=20)
+                x, wt, scale, shift, residual=res), warm=2, iters=5, queued=True)
+            unfused_ms = cuda_ms(torch, unfused, iters=20, queued=True)
             bms, by = bound_ms(*b4_cost(b, cin, co, h * w, residual, elem=2), BF16_TC_FLOP_PER_S)
-            rows.append({"shape": f"{stage} {cin}->{co}{' +res' if residual else ''}",
-                         "ms": ms, "plain_ms": plain_ms, "unfused_ms": unfused_ms,
+            attrs = bottleneck.kernel_attributes(bf, cfg["bm"], "wgmma", cfg["x_load"])
+            rows.append({"shape": shape, "ms": ms, "plain_ms": plain_ms, "unfused_ms": unfused_ms,
                          "bound_ms": bms, "bound_by": by, "max_ulps": ulps,
-                         "variant": cfg["variant"]})
-            print(f"[B4 bottleneck_tail] bf16 {rows[-1]['shape']} (x{n_blocks} per batch): kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, unfused cuDNN+ATen {unfused_ms:.4f} ms, "
-                  f"bound {bms:.4f} ms ({by}); max |diff| / (2^-7 |ref| + 1e-6) {ulps:.3f}; "
-                  f"variant {cfg['variant']}, {cfg['blocks']} blocks")
+                         "max_ulps_of_exact": ulps_x, "plain_max_ulps_of_exact": plain_ulps_x,
+                         "config": cfg, "attributes": attrs})
+            print(f"[B4 bottleneck_tail] bf16 {shape} (x{n_blocks} per batch): kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, unfused cuDNN+ATen {unfused_ms:.4f} ms, bound "
+                  f"{bms:.4f} ms ({by}); max |diff| / (2^-7 |ref| + 1e-6) {ulps:.3f} of the plain "
+                  f"version, {ulps_x:.3f} of the exact product (the plain version's own "
+                  f"{plain_ulps_x:.3f}, {plain_x} outside), two runs bit-equal; {cfg['variant']} "
+                  f"BM {cfg['bm']} BN {bottleneck.TILE_COLS}, X by "
+                  f"{cfg['x_load']}, split {cfg['split']}, {cfg['blocks']} blocks; registers "
+                  f"{attrs['registers']}, shared {attrs['dynamic_smem']} B, spills "
+                  f"{attrs['local_bytes']} B")
             for key, v in (("ms", ms), ("plain_ms", plain_ms), ("unfused_ms", unfused_ms),
                            ("bound_ms", bms)):
                 total[key] += n_blocks * v
             by_count[by] += n_blocks
-            del x, wt, res, got, ref
+            del x, wt, res, got, again, ref, exact
     by = "bytes" if by_count["bytes"] > by_count["operations"] else "operations"
     print(f"[B4 bottleneck_tail] bf16 per eval batch ({B4_LAUNCHES} calls): kernel "
           f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, unfused cuDNN+ATen "
           f"{total['unfused_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms, on {card}")
-    return {"name": "bottleneck_tail", "route": "cuda", "dtype": "bfloat16",
-            "source": "nopesac_torch/ops/csrc/bottleneck.cu",
+    return {"name": "bottleneck_tail", "route": "cuda", "dtype": "bfloat16", "variant": "wgmma",
+            "source": "nopesac_torch/ops/csrc/bottleneck_wgmma.cu",
             "replaces": "nopesac_tpu/ops/bottleneck_pallas.py:88", "max_abs_err": worst,
             "ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
             "bound_by": by, "library_ms": None, "unfused_ms": total["unfused_ms"],
-            "launches": 0, "per_shape": rows, "max_diff_over_limit": worst_ulps}
+            "launches": 0, "hgmma": hgmma, "per_shape": rows, "max_diff_over_limit": worst_ulps}
 
 
 def run_fused_path(torch, dev, model, batches, outs, card):
@@ -2137,10 +2218,11 @@ def run_bf16_eval_path(torch, dev, model, fused, batches, card):
     cfg.MODEL.COMPUTE_DTYPE = "bfloat16"
     h, w = cfg.INPUT.IMAGE_SIZE
     nq = cfg.MODEL.SEM_SEG_HEAD.NUM_OBJECT_QUERIES
-    steps = {}
+    steps, backbones = {}, {"f32": model.backbone}
     for name, fuse in (("unfused", False), ("fused", True)):
         m16 = build_model_from_cfg(cfg, device=dev, fuse_tail=fuse)
         m16.load_state_dict(model.state_dict(), strict=True)
+        backbones[name] = m16.backbone
         step = make_eval_step(m16, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
         with torch.inference_mode():
             step(*batches[0])  # warm-up
@@ -2160,6 +2242,7 @@ def run_bf16_eval_path(torch, dev, model, fused, batches, card):
         for o in outs16:
             check_outputs(torch, o, N_PAIRS, h, w, nq, cam_dtype=torch.bfloat16)
         steps[name] = step
+    check_bf16_backbone(torch, dev, backbones, batches[1], cfg)
     f32 = {"unfused": make_eval_step(model, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD),
            "fused": make_eval_step(fused, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)}
     order = [("f32", "unfused"), ("bf16", "unfused"), ("f32", "fused"), ("bf16", "fused")]
@@ -2171,6 +2254,47 @@ def run_bf16_eval_path(torch, dev, model, fused, batches, card):
               "{} {} {:.2f} ({:.2f}-{:.2f})".format(dt, k, *t) for (dt, k), t in zip(order, times)))
     check_bf16_small_reference(torch, dev)
     return counts
+
+
+def check_bf16_backbone(torch, dev, backbones, pairs, cfg):
+    """The fused bf16 backbone (B4's wgmma variant on its 24 identity-block
+    tails) against the unfused f32 one at full width, per stage, by the bf16
+    rule: max |fused bf16 - f32| <= max(1.5 max |unfused bf16 - f32|, one
+    bf16 ulp of max |f32|); with phase 5's seeded weights (FrozenBN at its
+    identity statistics) and with trained-like statistics as in phase 12."""
+    mean = torch.tensor(cfg.MODEL.PIXEL_MEAN, device=dev)
+    std = torch.tensor(cfg.MODEL.PIXEL_STD, device=dev)
+    x = ((torch.cat(pairs).float() - mean) / std).permute(0, 3, 1, 2).contiguous()
+    gen = torch.Generator().manual_seed(6)
+    stats = {}
+    for name, buf in backbones["f32"].state_dict().items():
+        if buf.dim() == 1:
+            stats[name] = (torch.rand(buf.shape, generator=gen) + 0.5
+                           if name.endswith(("weight", "var")) else
+                           torch.randn(buf.shape, generator=gen) * 0.1)
+    for what in ("seeded", "BN statistics"):
+        nets = backbones if what == "seeded" else {
+            k: copy.deepcopy(m) for k, m in backbones.items()}
+        if what != "seeded":
+            for m in nets.values():
+                for name, new in stats.items():
+                    m.state_dict()[name].copy_(new.to(dev))
+        with torch.inference_mode():
+            feats = {k: {s: v.float() for s, v in m(x).items()} for k, m in nets.items()}
+        rows = {}
+        for stage, ref in feats["f32"].items():
+            d_fused = float((feats["fused"][stage] - ref).abs().max())
+            d_unfused = float((feats["unfused"][stage] - ref).abs().max())
+            limit = max(1.5 * d_unfused, bf16_ulp(float(ref.abs().max())))
+            rows[stage] = (d_fused, d_unfused, limit)
+            if not d_fused <= limit:
+                raise SmokeFailure(f"bf16 fused backbone ({what}) at {stage}: max |fused bf16 - "
+                                   f"f32| {d_fused:.4e} over the limit {limit:.4e} (unfused bf16 "
+                                   f"{d_unfused:.4e})")
+        print(f"[bf16 eval] backbone per stage ({what}), max |fused bf16 - f32|, max |unfused bf16 "
+              f"- f32|, limit: " + ", ".join(f"{k} {a:.4e} {b:.4e} {c:.4e}"
+                                             for k, (a, b, c) in rows.items()))
+        del feats, nets
 
 
 def check_bf16_small_reference(torch, dev):
@@ -2884,8 +3008,12 @@ def numpy_tree(tree):
 
 def time_tree(torch, tree):
     """`--time-tree`: B1 and B2 of the port in `tree` timed by this script
-    (CUDA-event mean over 50 warm calls, device events under the profiler);
-    one JSON line with the card's name and power limit."""
+    (CUDA-event mean over 50 warm calls, device events under the profiler),
+    and B4 in bf16 at the eight eval shapes on phase 11's inputs (queued
+    CUDA-event means over 20 calls, summed over the 24 calls of an eval
+    batch); one JSON line with the card's name and power limit."""
+    from nopesac_torch.ops import bottleneck
+
     dev = torch.device("cuda", 0)
     _, card = phase_device(torch)
     result = {"tree": os.path.relpath(tree, REPO), "card": card}
@@ -2895,6 +3023,17 @@ def time_tree(torch, tree):
             result[name] = {"ms": cuda_ms(torch, call, iters=50),
                             "device_events_per_call": prof["per_call"],
                             "device_ms": prof["device_ms"]}
+        b4 = {"ms": 0.0, "per_shape": {}}
+        for stage, h, w, cout, mid, n_blocks in B4_STAGES:
+            for cin, co, residual in ((cout, mid, False), (mid, cout, True)):
+                x, wt, scale, shift, res = b4_inputs(torch, dev, 200 + len(b4["per_shape"]),
+                                                     2 * N_PAIRS, cin, co, h, w, residual,
+                                                     torch.bfloat16)
+                ms = cuda_ms(torch, lambda: bottleneck.conv1x1_bn_act_cuda(
+                    x, wt, scale, shift, residual=res), iters=20, queued=True)
+                b4["per_shape"][f"{stage} {cin}->{co}"] = ms
+                b4["ms"] += n_blocks * ms
+        result["bottleneck_tail_bf16"] = b4
     print(json.dumps(result))
     return 0
 
@@ -2902,7 +3041,7 @@ def time_tree(torch, tree):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--time-tree", default=None, metavar="DIR",
-                    help="only time B1 and B2 of the port in DIR (see above)")
+                    help="only time B1, B2 and B4 bf16 of the port in DIR (see above)")
     ap.add_argument("--ranks", type=int, default=0, metavar="N",
                     help="only phases 1, 2 and 17, with N ranks over NCCL, one per card, "
                          "in place of the two over gloo (see above)")

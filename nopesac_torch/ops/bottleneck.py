@@ -5,9 +5,10 @@ Counterpart of the JAX package's `ops/bottleneck_pallas.py:conv1x1_bn_add_relu`.
 The port is NCHW, so for each image the kernel computes
 Y_b[Cout, P] = W[Cout, Cin] . X_b[Cin, P] over the P = H * W pixels, with
 FrozenBN folded into an f32 epilogue: y = act(acc * scale + shift [+ res]).
-On a CUDA tensor the wrapper launches `csrc/bottleneck.cu`; on a CPU tensor it
-runs `conv1x1_bn_act_plain`. There is no backward: the block takes this path
-only in eval mode.
+On a CUDA tensor the wrapper launches `csrc/bottleneck_wgmma.cu` (bf16 on the
+tensor cores) or `csrc/bottleneck.cu` (f32, and bf16 off the `wgmma` shapes);
+on a CPU tensor it runs `conv1x1_bn_act_plain`. There is no backward: the
+block takes this path only in eval mode.
 """
 from __future__ import annotations
 
@@ -41,29 +42,48 @@ def conv1x1_bn_act_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 
 
 SMS = 132            # H100 SXM
-BLOCKS_PER_SM = 2    # 256 threads at <= 128 registers (the kernel's launch bounds)
+BLOCKS_PER_SM = 2    # resident blocks per SM of either kernel (their launch bounds)
 TILE_COLS = 128      # pixels per block
 MAX_SPLIT = 8        # the portable thread-block cluster size
 MIN_PART = 128       # Cin per split part
+WGMMA_K = 64         # Cin per stage of the wgmma variant
+WGMMA_MIN_PART = 256  # its Cin per split part
 
 
 def b4_config(b: int, cin: int, cout: int, p: int, dtype: torch.dtype = torch.float32,
               aligned: bool = True) -> dict:
-    """The compiled variant and launch config of `csrc/bottleneck.cu` for one
-    call (the table in its source note). `vec` (f32, P % 4 == 0, Cin % 4 ==
-    0, 16-byte aligned tensors) takes the cp.async path; anything else the
-    masked scalar one. BM is 64 where Cout <= 64, else 128. On `vec`, Cin is
-    split in 2, 4 or 8 while the grid is under two waves of SMS x
-    BLOCKS_PER_SM blocks and each part keeps at least MIN_PART of Cin."""
+    """The compiled variant and launch config of one call (the tables in the
+    source notes of `csrc/bottleneck.cu` and `csrc/bottleneck_wgmma.cu`).
+    `wgmma` (bf16, Cin % 64 == 0, P % 4 == 0, 16-byte aligned tensors) runs
+    on the tensor cores with BM 64, X by TMA per image where P % 8 == 0 and
+    by cp.async over the flattened B * P pixels otherwise; `vec` (f32, P %
+    4 == 0, Cin % 4 == 0, aligned) takes the cp.async FFMA path; anything
+    else the masked scalar one. Off `wgmma`, BM is 64 where Cout <= 64, else
+    128. Cin is split in 2, 4 or 8 while the grid is under one wave of SMS x
+    BLOCKS_PER_SM blocks (`wgmma`, parts >= WGMMA_MIN_PART) or two (`vec`,
+    parts >= MIN_PART). On `wgmma` with X by TMA and no split, at most one
+    wave of blocks stays resident and walks the tiles."""
+    wgmma = dtype == torch.bfloat16 and aligned and p % 4 == 0 and cin % WGMMA_K == 0
+    bm = 64 if wgmma or cout <= 64 else 128
     vec = dtype == torch.float32 and aligned and p % 4 == 0 and cin % 4 == 0
-    bm = 64 if cout <= 64 else 128
-    tiles = -(-cout // bm) * -(-(b * p) // TILE_COLS)
+    tma_x = wgmma and p % 8 == 0
+    cols = b * -(-p // TILE_COLS) if tma_x else -(-(b * p) // TILE_COLS)
+    tiles = -(-cout // bm) * cols
+    if wgmma:
+        grid, step, min_part = SMS * BLOCKS_PER_SM, WGMMA_K, WGMMA_MIN_PART
+    else:
+        grid, step, min_part = 2 * SMS * BLOCKS_PER_SM, 16, MIN_PART
     split = 1
-    while (vec and tiles * split < 2 * SMS * BLOCKS_PER_SM and 2 * split <= MAX_SPLIT
-           and cin % (16 * 2 * split) == 0 and cin // (2 * split) >= MIN_PART):
+    while ((wgmma or vec) and tiles * split < grid and 2 * split <= MAX_SPLIT
+           and cin % (step * 2 * split) == 0 and cin // (2 * split) >= min_part):
         split *= 2
-    return {"variant": "vec" if vec else "scalar", "bm": bm, "split": split, "tiles": tiles,
-            "blocks": tiles * split}
+    walk = tma_x and split == 1
+    cfg = {"variant": "wgmma" if wgmma else "vec" if vec else "scalar", "bm": bm,
+           "split": split, "tiles": tiles,
+           "blocks": min(tiles, SMS * BLOCKS_PER_SM) if walk else tiles * split}
+    if wgmma:
+        cfg["x_load"] = "tma" if tma_x else "cp.async"
+    return cfg
 
 
 last_config: dict = {}  # the config of the latest CUDA launch
@@ -76,8 +96,8 @@ def _aligned(*tensors) -> bool:
 def conv1x1_bn_act_cuda(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                         shift: torch.Tensor, residual: Optional[torch.Tensor] = None,
                         relu: bool = True) -> torch.Tensor:
-    """Launch `csrc/bottleneck.cu` on x [B, Cin, *spatial] and the conv weight
-    [Cout, Cin(, 1, 1)]; residual [B, Cout, *spatial] or None."""
+    """Launch the variant `b4_config` picks on x [B, Cin, *spatial] and the
+    conv weight [Cout, Cin(, 1, 1)]; residual [B, Cout, *spatial] or None."""
     if x.device.type != "cuda":
         raise ValueError(f"bottleneck kernel takes CUDA tensors, got {x.device}")
     if x.dtype not in _DTYPES:
@@ -107,31 +127,44 @@ def conv1x1_bn_act_cuda(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     p = x[0, 0].numel()
     cfg = b4_config(b, cin, cout, p, x.dtype, _aligned(x, w, res, out))
-    fn = _build.load("bottleneck").nopesac_conv1x1_bn_act
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    ptrs = (x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            None if res is None else res.data_ptr(), out.data_ptr())
+    if cfg["variant"] == "wgmma":
+        name = "nopesac_conv1x1_bn_act_wgmma"
+        fn = getattr(_build.load("bottleneck_wgmma"), name)
+        args = (b, cin, cout, p, int(relu), int(cfg["x_load"] == "tma"), cfg["split"])
+    else:
+        name = "nopesac_conv1x1_bn_act"
+        fn = getattr(_build.load("bottleneck"), name)
+        args = (b, cin, cout, p, int(relu), int(x.dtype == torch.bfloat16), cfg["bm"],
+                int(cfg["variant"] == "vec"), cfg["split"])
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * len(args) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                 None if res is None else res.data_ptr(), out.data_ptr(),
-                 b, cin, cout, p, int(relu), int(x.dtype == torch.bfloat16), cfg["bm"],
-                 int(cfg["variant"] == "vec"), cfg["split"], stream)
-    _build.check(err, "nopesac_conv1x1_bn_act")
+        err = fn(*ptrs, *args, stream)
+    _build.check(err, name)
     LAUNCHES.bump(KERNEL)
     last_config.clear()
     last_config.update(cfg)
     return out
 
 
-def kernel_attributes(dtype: torch.dtype, bm: int, variant: str) -> dict:
+def kernel_attributes(dtype: torch.dtype, bm: int, variant: str, x_load: str = "tma") -> dict:
     """Registers, shared memory and spill bytes of one compiled variant
     (cudaFuncGetAttributes), for the record of a run on the card."""
-    fn = _build.load("bottleneck").nopesac_conv1x1_bn_act_attrs
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     vals = (ctypes.c_int * 5)()
-    _build.check(fn(int(dtype == torch.bfloat16), bm, int(variant == "vec"), vals),
-                 "nopesac_conv1x1_bn_act_attrs")
+    if variant == "wgmma":
+        name = "nopesac_conv1x1_bn_act_wgmma_attrs"
+        fn = getattr(_build.load("bottleneck_wgmma"), name)
+        args = (int(x_load == "tma"),)
+    else:
+        name = "nopesac_conv1x1_bn_act_attrs"
+        fn = getattr(_build.load("bottleneck"), name)
+        args = (int(dtype == torch.bfloat16), bm, int(variant == "vec"))
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.check(fn(*args, vals), name)
     return dict(zip(("registers", "static_smem", "dynamic_smem", "local_bytes", "max_threads"),
                     vals))
 

@@ -102,13 +102,37 @@ def test_b4_config_of_the_eval_shapes(cin, cout, p):
 
 @pytest.mark.parametrize("b,cin,cout,p,dtype,aligned", [
     (1, 96, 72, 63, torch.float32, True),     # P % 4 != 0
-    (2, 64, 256, 300, torch.bfloat16, True),  # bf16 (the JAX test's shape)
+    (2, 64, 256, 63, torch.bfloat16, True),   # bf16 with P % 4 != 0
     (8, 512, 128, 4800, torch.float32, False),  # a pointer off 16 bytes
     (2, 30, 64, 300, torch.float32, True),    # Cin % 4 != 0
+    (8, 96, 256, 4800, torch.bfloat16, True),   # bf16 with Cin % 64 != 0
+    (8, 512, 128, 4800, torch.bfloat16, False),  # bf16 with a pointer off 16 bytes
 ])
 def test_b4_config_takes_the_scalar_variant_off_the_fast_path(b, cin, cout, p, dtype, aligned):
     cfg = bottleneck.b4_config(b, cin, cout, p, dtype, aligned)
     assert cfg["variant"] == "scalar" and cfg["split"] == 1
+
+
+@pytest.mark.parametrize("b,cin,cout,p", [(8, *shape) for shape in EVAL_SHAPES]
+                         + [(2, 64, 256, 300)])  # and the JAX test's shape
+def test_b4_config_takes_the_wgmma_variant_for_bf16(b, cin, cout, p):
+    """Every bf16 shape of the fused-tail eval batch, and the JAX test's,
+    runs on the tensor cores: BM 64, X by TMA where a bf16 row of P is a
+    multiple of 16 bytes and by cp.async at P = 300; Cin is split only
+    while the grid is under one wave, in parts of at least 256; on the TMA
+    path without a split at most one wave of blocks walks the tiles."""
+    cfg = bottleneck.b4_config(b, cin, cout, p, torch.bfloat16)
+    assert cfg["variant"] == "wgmma" and cfg["bm"] == 64
+    assert cfg["x_load"] == ("tma" if p % 8 == 0 else "cp.async")
+    cols = b * -(-p // bottleneck.TILE_COLS) if p % 8 == 0 else -(-(b * p) // bottleneck.TILE_COLS)
+    assert cfg["tiles"] == -(-cout // 64) * cols
+    wave = bottleneck.SMS * bottleneck.BLOCKS_PER_SM
+    walk = cfg["x_load"] == "tma" and cfg["split"] == 1
+    assert cfg["blocks"] == (min(cfg["tiles"], wave) if walk else cfg["tiles"] * cfg["split"])
+    assert cin % (bottleneck.WGMMA_K * cfg["split"]) == 0
+    if cfg["split"] > 1:
+        assert cfg["tiles"] * cfg["split"] // 2 < bottleneck.SMS * bottleneck.BLOCKS_PER_SM
+        assert cin // cfg["split"] >= bottleneck.WGMMA_MIN_PART
 
 
 def _perturb_bn(tree, rng):

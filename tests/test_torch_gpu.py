@@ -316,12 +316,13 @@ EVAL_SHAPES = [(8, cin, cout, h, w, residual)
 
 @pytest.mark.parametrize("b,cin,cout,h,w,residual,relu,dtype,variant", [
     (2, 64, 256, 15, 20, True, True, torch.float32, "vec"),       # the JAX test's P = 300
-    (2, 64, 256, 15, 20, True, False, torch.bfloat16, "scalar"),  # bf16: P = 300, 300 % 8 != 0
-    (2, 64, 256, 15, 20, False, True, torch.bfloat16, "scalar"),
+    (2, 64, 256, 15, 20, True, False, torch.bfloat16, "wgmma"),   # bf16: P = 300, X by cp.async
+    (2, 64, 256, 15, 20, False, True, torch.bfloat16, "wgmma"),
     (8, 256, 64, 120, 160, False, True, torch.float32, "vec"),    # res2 conv1 of the eval path
     (8, 512, 2048, 15, 20, True, True, torch.float32, "vec"),     # res5 conv3
     (1, 96, 72, 7, 9, True, True, torch.float32, "scalar"),       # ragged Cout, P = 63
     (2, 96, 72, 7, 9, False, False, torch.float32, "scalar"),     # a tile across two images
+    (1, 64, 72, 7, 9, True, True, torch.bfloat16, "scalar"),      # bf16 with P = 63: not wgmma
 ])
 def test_bottleneck_kernel_matches_plain(cuda, b, cin, cout, h, w, residual, relu, dtype,
                                          variant):
@@ -356,14 +357,40 @@ def test_bottleneck_kernel_at_the_eval_shapes(cuda, b, cin, cout, h, w, residual
 
 @pytest.mark.parametrize("b,cin,cout,h,w,residual", EVAL_SHAPES)
 def test_bottleneck_kernel_bf16_at_the_eval_shapes(cuda, b, cin, cout, h, w, residual):
-    """bf16 at the eight eval shapes (chip_smoke.py phase 11's bound): within
-    one bf16 ulp of the plain version."""
+    """bf16 at the eight eval shapes (chip_smoke.py phase 11's bound): the
+    wgmma variant, within one bf16 ulp of the plain version, bit-equal on a
+    second run."""
     x, wt, scale, shift, res = _b4_inputs(cuda, 2, b, cin, cout, h, w, residual, torch.bfloat16)
     got = bottleneck.conv1x1_bn_act(x, wt, scale, shift, residual=res)
+    cfg = dict(bottleneck.last_config)
+    assert cfg == bottleneck.b4_config(b, cin, cout, h * w, torch.bfloat16)
+    assert cfg["variant"] == "wgmma"
     ref = bottleneck.conv1x1_bn_act_plain(x, wt, scale, shift, residual=res)
     assert got.dtype == torch.bfloat16
     diff = (got.float() - ref.float()).abs()
     assert bool((diff <= BF16_ULP * ref.float().abs() + 1e-6).all()), float(diff.max())
+    assert torch.equal(got, bottleneck.conv1x1_bn_act(x, wt, scale, shift, residual=res))
+
+
+@pytest.mark.parametrize("b,cin,cout,h,w,residual,x_load,split", [
+    (2, 128, 192, 30, 40, True, "tma", 1),       # ragged last tiles: P = 1200, Cout = 192
+    (3, 64, 256, 15, 20, True, "cp.async", 1),   # P = 300: tiles across two images
+    (8, 2048, 512, 15, 20, False, "cp.async", 2),  # res5 conv1: Cin split over a cluster
+    (2, 1024, 256, 30, 40, True, "tma", 4),      # a split on the TMA path, the residual per rank
+])
+def test_bottleneck_kernel_bf16_trouble_spots(cuda, b, cin, cout, h, w, residual, x_load, split):
+    """The wgmma variant where its tiles meet the edges of the maps, and
+    where it splits Cin: within one bf16 ulp, and two runs bit-equal (the
+    cluster reduction sums in rank order, without atomics)."""
+    x, wt, scale, shift, res = _b4_inputs(cuda, 3, b, cin, cout, h, w, residual, torch.bfloat16)
+    got = bottleneck.conv1x1_bn_act(x, wt, scale, shift, residual=res)
+    cfg = dict(bottleneck.last_config)
+    assert (cfg["variant"], cfg["x_load"], cfg["split"]) == ("wgmma", x_load, split)
+    ref = bottleneck.conv1x1_bn_act_plain(x, wt, scale, shift, residual=res)
+    diff = (got.float() - ref.float()).abs()
+    assert bool((diff <= BF16_ULP * ref.float().abs() + 1e-6).all()), float(diff.max())
+    for _ in range(2):
+        assert torch.equal(got, bottleneck.conv1x1_bn_act(x, wt, scale, shift, residual=res))
 
 
 def test_bottleneck_kernel_refuses_autograd(cuda):
