@@ -226,9 +226,12 @@ phase 16's REMAT-on run, where the model sends f32 logits and phase 16
 requires 0). Each entry and its "bf16" object also carry "launches_scannet",
 the launches over phase 21's (b)-(d).
 
-Kernel times are CUDA-event means over many warm launches (B4's with the
-launches queued behind a sleep kernel, so that they time the device and not
-the wrapper's host work). `bound_ms` is the
+Every kernel row (a kernel, its plain version, B4's cuDNN + ATen sequence)
+is timed one way, by `kernel_ms`: "ms" is the CUDA-event mean over many warm
+launches queued behind a sleep kernel, so that it times the device and not
+the wrapper's host work; each kernel's entry also carries "unqueued_ms", the
+mean as the host issues the launches, and its wrapper's "host_us" per call
+(B4: "host_ms" per eval batch). `bound_ms` is the
 larger of bytes moved / 3.35 TB/s and operations / the peak rate of their
 type: 67 TFLOP/s f32, 989 TFLOP/s dense bf16 on the tensor cores (H100 SXM
 published peaks).
@@ -237,8 +240,9 @@ published peaks).
 
 times B1 and B2 of the port in DIR (a checkout of any of its commits, e.g. a
 parent unpacked with `git archive`) on phase 3's and 4's inputs, through the
-functions the eval path calls, and B4 in bf16 at the eight eval shapes on
-phase 11's inputs, with this script's timing code, and prints one JSON line;
+functions the eval path calls, and B4 in f32 and bf16 at the eight eval
+shapes on phase 11's inputs, with this script's timing code (queued and
+unqueued), and prints one JSON line;
 run it for a parent and a change in turns in one call.
 
     python3 chip_smoke.py --ranks N
@@ -295,7 +299,7 @@ B4_STAGES = (("res2", 120, 160, 256, 64, 2), ("res3", 60, 80, 512, 128, 3),
              ("res4", 30, 40, 1024, 256, 5), ("res5", 15, 20, 2048, 512, 2))
 B4_LAUNCHES = 2 * sum(s[-1] for s in B4_STAGES)  # 24 per eval batch
 B4_F32_TOL = 1e-5  # of max |ref|: f32 sums over Cin in another order
-QUEUE_CYCLES = 40_000_000  # ~20 ms of sleep kernel at the H100's clock, > the host's enqueue
+QUEUE_CYCLES = 40_000_000  # the least sleep kernel before queued calls: ~20 ms at SM_CLOCK_HZ
 BF16_ULP = 2.0 ** -7
 # losses held at their decoder levels' bf16 noise where their own lies under
 # the floor (tests/test_torch_bf16_train.py:LEVEL_NOISE gives the reasons)
@@ -354,24 +358,46 @@ def launches_want(**counts):
     return {n: counts.get(n, 0) for n in KERNEL_NAMES}
 
 
-def cuda_ms(torch, fn, warm=3, iters=20, queued=False):
-    """CUDA-event ms per call over `iters` warm calls. `queued` holds the
-    stream in a sleep kernel while the host enqueues the calls, so that the
-    events time the device's back-to-back work even where a call takes the
-    device less time than its wrapper takes the host (B4 in bf16)."""
+def cuda_ms(torch, fn, warm=3, iters=20):
+    """CUDA-event ms per call over `iters` warm calls, as the host issues them."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    if queued:
-        torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(torch, fn, warm=3, iters=20):
+    """The times per call of one kernel row (a kernel, its plain version, a
+    library sequence) over `iters` warm calls, by CUDA events: "ms" with
+    the calls queued behind a sleep kernel that outlasts their enqueue, so
+    that the events time the device's back-to-back work alone;
+    "unqueued_ms" with the calls timed as the host issues them (above "ms"
+    where the host's work per call outlasts the device's); "host_us" the
+    host's time to issue one call while the queue is held. A call that
+    waits on the device (a plain version's host sync) drains the queue, and
+    its "ms" comes to its "unqueued_ms"."""
+    t0 = time.perf_counter()
+    unqueued = cuda_ms(torch, fn, warm, iters)
+    wall = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(max(QUEUE_CYCLES, 2 * wall * SM_CLOCK_HZ)))
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    return {"ms": start.elapsed_time(end) / iters, "unqueued_ms": unqueued,
+            "host_us": 1e6 * host / iters}
 
 
 def device_events(torch, fn, calls=5):
@@ -502,20 +528,23 @@ def check_select(torch, dev):
           f"({prof['names']}), {prof['device_ms']:.4f} device ms per call")
     if prof["per_call"] != 1:
         raise SmokeFailure("B1 must be one device kernel per call")
-    ms = cuda_ms(torch, call, iters=50)
-    plain_ms = cuda_ms(torch, lambda: select.select_maps_plain(
-        prob16.float(), score, valid, thr, out_h, out_w), warm=2, iters=5)
+    t = kernel_ms(torch, call, iters=50)
+    ms = t["ms"]
+    plain_ms = kernel_ms(torch, lambda: select.select_maps_plain(
+        prob16.float(), score, valid, thr, out_h, out_w), warm=2, iters=5)["ms"]
     n_bytes = (b * nq * h * w * 2 + b * nq * (4 + 1)        # prob bf16, score, valid
                + 2 * b * out_h * out_w * 4 + b * 7 * nq * 4)  # seg, max, stats
     # per output pixel and query: a row 2-tap (3), the score product (1) and
     # 3/4 of a column 2-tap (2.25), shared by the 4 output rows of a low-res pixel
     n_ops = b * nq * out_h * out_w * 6.25
     bms, by = bound_ms(n_bytes, n_ops)
-    print(f"[B1 select_maps] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+    print(f"[B1 select_maps] kernel {ms:.4f} ms (unqueued {t['unqueued_ms']:.4f}, host "
+          f"{t['host_us']:.1f} us per call), plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
           f"({by}: {n_bytes} B, {n_ops:.0f} flop)")
     return {"name": "select_maps", "route": "cuda", "source": "nopesac_torch/ops/csrc/select.cu",
             "replaces": "nopesac_tpu/ops/select_pallas.py:213", "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "unqueued_ms": t["unqueued_ms"], "host_us": t["host_us"],
             "device_events_per_call": prof["per_call"]}
 
 
@@ -560,21 +589,24 @@ def check_sinkhorn(torch, dev):
           f"({prof['names']}), kernel {prof['device_ms']:.4f} device ms per call")
     if prof["per_call"] != 1:
         raise SmokeFailure("B2 must be one device kernel per call, from scores to output")
-    ms = cuda_ms(torch, call, iters=50)
-    plain_ms = cuda_ms(torch, lambda: sinkhorn.sinkhorn_plain(scores, alpha, iters, row, col),
-                       warm=1, iters=3)
+    t = kernel_ms(torch, call, iters=50)
+    ms = t["ms"]
+    plain_ms = kernel_ms(torch, lambda: sinkhorn.sinkhorn_plain(scores, alpha, iters, row, col),
+                         warm=1, iters=3)["ms"]
     r, c = m + 1, n + 1
     n_bytes = 4 * b * m * n + b * (m + n) + 4 + 4 * b * r * c  # scores, masks, alpha, out
     n_ops = b * iters * 2 * r * c * 5                          # add, max, sub, exp, sum per entry and pass
     bms, by = bound_ms(n_bytes, n_ops)
     floor_ms, cycles = sinkhorn_floor_ms(iters, sinkhorn.GROUP)
-    print(f"[B2 sinkhorn] scores to output {ms:.4f} ms ({sinkhorn.GROUP} lanes per row), kernel "
+    print(f"[B2 sinkhorn] scores to output {ms:.4f} ms (unqueued {t['unqueued_ms']:.4f}, host "
+          f"{t['host_us']:.1f} us per call; {sinkhorn.GROUP} lanes per row), kernel "
           f"alone {prof['device_ms']:.4f} device ms, plain {plain_ms:.4f} ms, bound {bms:.6f} ms "
           f"({by}: {n_bytes} B, {n_ops} flop); dependency floor estimate {floor_ms:.4f} ms "
           f"({cycles} cycles per half-iteration at assumed latencies, not measured)")
     return {"name": "sinkhorn", "route": "cuda", "source": "nopesac_torch/ops/csrc/sinkhorn.cu",
             "replaces": "nopesac_tpu/ops/sinkhorn_pallas.py:87", "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "unqueued_ms": t["unqueued_ms"], "host_us": t["host_us"],
             "kernel_device_ms": prof["device_ms"], "device_events_per_call": prof["per_call"]}
 
 
@@ -828,9 +860,10 @@ def check_mask_loss(torch, dev):
               f"(cudaFuncGetAttributes)")
     idx = mask_loss._flat_index(masks, tgt, matched)
     grad3 = weights[..., :3].reshape(-1, 3).contiguous()
-    ms_fwd = cuda_ms(torch, lambda: mask_loss.mask_loss_fwd_cuda(src, masks, idx), iters=50)
-    ms_bwd = cuda_ms(torch, lambda: mask_loss.mask_loss_bwd_cuda(src, masks, idx, grad3),
-                     iters=50)
+    t_fwd = kernel_ms(torch, lambda: mask_loss.mask_loss_fwd_cuda(src, masks, idx), iters=50)
+    t_bwd = kernel_ms(torch, lambda: mask_loss.mask_loss_bwd_cuda(src, masks, idx, grad3),
+                      iters=50)
+    ms_fwd, ms_bwd = t_fwd["ms"], t_bwd["ms"]
 
     def plain_fwd():
         return mask_loss.focal_dice_plain(src.detach().requires_grad_(True), masks, tgt, matched)
@@ -838,25 +871,28 @@ def check_mask_loss(torch, dev):
     def plain_fwd_bwd():
         torch.autograd.backward(torch.stack(plain_fwd(), dim=-1), weights)
 
-    plain_fwd_ms = cuda_ms(torch, plain_fwd, warm=2, iters=5)
-    plain_bwd_ms = cuda_ms(torch, plain_fwd_bwd, warm=2, iters=5) - plain_fwd_ms
+    plain_fwd_ms = kernel_ms(torch, plain_fwd, warm=2, iters=5)["ms"]
+    plain_bwd_ms = kernel_ms(torch, plain_fwd_bwd, warm=2, iters=5)["ms"] - plain_fwd_ms
     n_m, n_px = int(matched.sum()), 16 * h * w
     read = n_m * (h * w * 4 + n_px) + b * nq * 4  # matched logits, matched masks, index
     fwd_bms, fwd_by = bound_ms(read + b * nq * 4 * 4, n_m * n_px * MASK_FWD_OPS)
     bwd_bms, bwd_by = bound_ms(read + b * nq * 3 * 4 + b * nq * h * w * 4,
                                n_m * n_px * MASK_BWD_OPS)
-    print(f"[B3 mask_loss] forward kernel {ms_fwd:.4f} ms (bound {fwd_bms:.4f} ms, {fwd_by}), "
-          f"plain {plain_fwd_ms:.3f} ms; backward kernel {ms_bwd:.4f} ms (bound {bwd_bms:.4f} "
-          f"ms, {bwd_by}), plain {plain_bwd_ms:.3f} ms")
+    print(f"[B3 mask_loss] forward kernel {ms_fwd:.4f} ms (unqueued {t_fwd['unqueued_ms']:.4f}; "
+          f"bound {fwd_bms:.4f} ms, {fwd_by}), plain {plain_fwd_ms:.3f} ms; backward kernel "
+          f"{ms_bwd:.4f} ms (unqueued {t_bwd['unqueued_ms']:.4f}; bound {bwd_bms:.4f} ms, "
+          f"{bwd_by}), plain {plain_bwd_ms:.3f} ms")
     bf16 = check_mask_loss_bf16(torch, src, masks, tgt, matched, weights, idx, grad3)
     common = {"route": "cuda", "source": "nopesac_torch/ops/csrc/mask_loss.cu",
               "library_ms": None}
     return [dict(common, name="mask_loss_fwd", replaces="nopesac_tpu/ops/mask_loss_pallas.py:199",
                  max_abs_err=sum_err, ms=ms_fwd, plain_ms=plain_fwd_ms, bound_ms=fwd_bms,
-                 bound_by=fwd_by, bf16=bf16["fwd"]),
+                 bound_by=fwd_by, unqueued_ms=t_fwd["unqueued_ms"], host_us=t_fwd["host_us"],
+                 bf16=bf16["fwd"]),
             dict(common, name="mask_loss_bwd", replaces="nopesac_tpu/ops/mask_loss_pallas.py:235",
                  max_abs_err=grad_err, ms=ms_bwd, plain_ms=plain_bwd_ms, bound_ms=bwd_bms,
-                 bound_by=bwd_by, bf16=bf16["bwd"])]
+                 bound_by=bwd_by, unqueued_ms=t_bwd["unqueued_ms"], host_us=t_bwd["host_us"],
+                 bf16=bf16["bwd"])]
 
 
 def check_mask_loss_bf16(torch, src32, masks, tgt, matched, weights, idx, grad3):
@@ -888,8 +924,10 @@ def check_mask_loss_bf16(torch, src32, masks, tgt, matched, weights, idx, grad3)
           f"unmatched exact zeros: {zeros_ok}")
     if not (sum_rel <= 1e-4 and grad_err <= BF16_ULP * scale and zeros_ok):
         raise SmokeFailure("B3 kernel (bf16 logits) disagrees with its plain version")
-    ms_fwd = cuda_ms(torch, lambda: mask_loss.mask_loss_fwd_cuda(src, masks, idx), iters=50)
-    ms_bwd = cuda_ms(torch, lambda: mask_loss.mask_loss_bwd_cuda(src, masks, idx, grad3), iters=50)
+    t_fwd = kernel_ms(torch, lambda: mask_loss.mask_loss_fwd_cuda(src, masks, idx), iters=50)
+    t_bwd = kernel_ms(torch, lambda: mask_loss.mask_loss_bwd_cuda(src, masks, idx, grad3),
+                      iters=50)
+    ms_fwd, ms_bwd = t_fwd["ms"], t_bwd["ms"]
 
     def plain_fwd():
         return mask_loss.focal_dice_plain(src.detach().requires_grad_(True), masks, tgt, matched)
@@ -897,23 +935,27 @@ def check_mask_loss_bf16(torch, src32, masks, tgt, matched, weights, idx, grad3)
     def plain_fwd_bwd():
         torch.autograd.backward(torch.stack(plain_fwd(), dim=-1), weights)
 
-    plain_fwd_ms = cuda_ms(torch, plain_fwd, warm=2, iters=5)
-    plain_bwd_ms = cuda_ms(torch, plain_fwd_bwd, warm=2, iters=5) - plain_fwd_ms
+    plain_fwd_ms = kernel_ms(torch, plain_fwd, warm=2, iters=5)["ms"]
+    plain_bwd_ms = kernel_ms(torch, plain_fwd_bwd, warm=2, iters=5)["ms"] - plain_fwd_ms
     n_m, n_px = int(matched.sum()), 16 * h * w
     read = n_m * (h * w * 2 + n_px) + b * nq * 4  # matched bf16 logits, masks, index
     fwd_bms, fwd_by = bound_ms(read + b * nq * 4 * 4, n_m * n_px * MASK_FWD_OPS)
     bwd_bms, bwd_by = bound_ms(read + b * nq * 3 * 4 + b * nq * h * w * 2,
                                n_m * n_px * MASK_BWD_OPS)
-    print(f"[B3 mask_loss] bf16 logits: forward kernel {ms_fwd:.4f} ms (bound {fwd_bms:.4f} ms, "
-          f"{fwd_by}), plain {plain_fwd_ms:.3f} ms; backward kernel {ms_bwd:.4f} ms (bound "
-          f"{bwd_bms:.4f} ms, {bwd_by}), plain {plain_bwd_ms:.3f} ms")
+    print(f"[B3 mask_loss] bf16 logits: forward kernel {ms_fwd:.4f} ms (unqueued "
+          f"{t_fwd['unqueued_ms']:.4f}; bound {fwd_bms:.4f} ms, {fwd_by}), plain "
+          f"{plain_fwd_ms:.3f} ms; backward kernel {ms_bwd:.4f} ms (unqueued "
+          f"{t_bwd['unqueued_ms']:.4f}; bound {bwd_bms:.4f} ms, {bwd_by}), plain "
+          f"{plain_bwd_ms:.3f} ms")
     common = {"route": "cuda", "source": "nopesac_torch/ops/csrc/mask_loss.cu",
               "library_ms": None, "dtype": "bfloat16"}  # launches: phase 16's
     return {"fwd": dict(common, name="mask_loss_fwd", max_abs_err=sum_err, ms=ms_fwd,
                         plain_ms=plain_fwd_ms, bound_ms=fwd_bms, bound_by=fwd_by,
+                        unqueued_ms=t_fwd["unqueued_ms"], host_us=t_fwd["host_us"],
                         replaces="nopesac_tpu/ops/mask_loss_pallas.py:199"),
             "bwd": dict(common, name="mask_loss_bwd", max_abs_err=grad_err, ms=ms_bwd,
                         plain_ms=plain_bwd_ms, bound_ms=bwd_bms, bound_by=bwd_by,
+                        unqueued_ms=t_bwd["unqueued_ms"], host_us=t_bwd["host_us"],
                         replaces="nopesac_tpu/ops/mask_loss_pallas.py:235")}
 
 
@@ -1932,12 +1974,40 @@ def b4_cost(b, cin, cout, p, residual, elem=4):
     return n_bytes, n_ops
 
 
+# B4's per-shape times summed over the 24 calls of an eval batch
+B4_TOTALS = ("ms", "unqueued_ms", "host_ms", "plain_ms", "plain_unqueued_ms", "unfused_ms",
+             "unfused_unqueued_ms", "bound_ms")
+
+
+def b4_times(torch, bottleneck, unfused, x, wt, scale, shift, res):
+    """One B4 shape's kernel row (`kernel_ms`): the kernel's, its plain
+    version's and the unfused cuDNN + ATen sequence's queued and unqueued
+    ms per call, and the kernel wrapper's host ms per call."""
+    t = kernel_ms(torch, lambda: bottleneck.conv1x1_bn_act_cuda(x, wt, scale, shift,
+                                                                residual=res))
+    plain = kernel_ms(torch, lambda: bottleneck.conv1x1_bn_act_plain(x, wt, scale, shift,
+                                                                     residual=res),
+                      warm=2, iters=5)
+    lib = kernel_ms(torch, unfused)
+    return {"ms": t["ms"], "unqueued_ms": t["unqueued_ms"], "host_ms": t["host_us"] / 1e3,
+            "plain_ms": plain["ms"], "plain_unqueued_ms": plain["unqueued_ms"],
+            "unfused_ms": lib["ms"], "unfused_unqueued_ms": lib["unqueued_ms"]}
+
+
+def b4_times_text(t, per="call"):
+    """`b4_times`' numbers, queued / unqueued, for a print line."""
+    return (f"kernel {t['ms']:.4f} / {t['unqueued_ms']:.4f} ms (queued / unqueued; the "
+            f"wrapper's host {1e3 * t['host_ms']:.1f} us per {per}), plain {t['plain_ms']:.4f} "
+            f"/ {t['plain_unqueued_ms']:.4f} ms, unfused cuDNN+ATen {t['unfused_ms']:.4f} / "
+            f"{t['unfused_unqueued_ms']:.4f} ms")
+
+
 def check_bottleneck(torch, dev, card):
     from nopesac_torch.ops import bottleneck
 
     F = torch.nn.functional
     b = 2 * N_PAIRS
-    rows, total = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "unfused_ms": 0.0}
+    rows, total = [], dict.fromkeys(B4_TOTALS, 0.0)
     by_count = {"bytes": 0, "operations": 0}
     worst = 0.0
     for stage, h, w, cout, mid, n_blocks in B4_STAGES:
@@ -1961,23 +2031,16 @@ def check_bottleneck(torch, dev, card):
                 y = F.conv2d(x, wt) * scale[None, :, None, None] + shift[None, :, None, None]
                 return F.relu(y + res) if residual else F.relu(y)
 
-            ms = cuda_ms(torch, lambda: bottleneck.conv1x1_bn_act_cuda(
-                x, wt, scale, shift, residual=res), iters=20, queued=True)
-            plain_ms = cuda_ms(torch, lambda: bottleneck.conv1x1_bn_act_plain(
-                x, wt, scale, shift, residual=res), warm=2, iters=5, queued=True)
-            unfused_ms = cuda_ms(torch, unfused, iters=20, queued=True)
+            t = b4_times(torch, bottleneck, unfused, x, wt, scale, shift, res)
             bms, by = bound_ms(*b4_cost(b, cin, co, h * w, residual))
-            rows.append({"shape": f"{stage} {cin}->{co}{' +res' if residual else ''}",
-                         "P": b * h * w, "ms": ms, "plain_ms": plain_ms, "unfused_ms": unfused_ms,
-                         "bound_ms": bms, "bound_by": by, "max_rel_err": rel, "config": cfg})
+            rows.append(dict(t, shape=f"{stage} {cin}->{co}{' +res' if residual else ''}",
+                             P=b * h * w, bound_ms=bms, bound_by=by, max_rel_err=rel, config=cfg))
             print(f"[B4 bottleneck_tail] {rows[-1]['shape']} (P {b * h * w}, x{n_blocks} per "
-                  f"batch): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, unfused cuDNN+ATen "
-                  f"{unfused_ms:.4f} ms, bound {bms:.4f} ms ({by}); max |diff| {err:.3e} "
+                  f"batch): {b4_times_text(t)}, bound {bms:.4f} ms ({by}); max |diff| {err:.3e} "
                   f"({rel:.2e} of max |ref|); variant {cfg['variant']}, BM {cfg['bm']}, split "
                   f"{cfg['split']}, {cfg['blocks']} blocks")
-            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("unfused_ms", unfused_ms),
-                           ("bound_ms", bms)):
-                total[key] += n_blocks * v
+            for key in B4_TOTALS:
+                total[key] += n_blocks * rows[-1][key]
             by_count[by] += n_blocks
             del x, wt, res, got, ref
     bf16 = check_bottleneck_bf16(torch, dev, card)
@@ -2012,14 +2075,12 @@ def check_bottleneck(torch, dev, card):
               f"{bottleneck.kernel_attributes(torch.bfloat16, 64, 'wgmma', x_load)} "
               f"(cudaFuncGetAttributes)")
     by = "bytes" if by_count["bytes"] > by_count["operations"] else "operations"
-    print(f"[B4 bottleneck_tail] per eval batch ({B4_LAUNCHES} calls): kernel {total['ms']:.4f} "
-          f"ms, plain {total['plain_ms']:.4f} ms, unfused cuDNN+ATen {total['unfused_ms']:.4f} "
-          f"ms, bound {total['bound_ms']:.4f} ms, on {card}")
+    print(f"[B4 bottleneck_tail] per eval batch ({B4_LAUNCHES} calls): "
+          f"{b4_times_text(total, 'batch')}, bound {total['bound_ms']:.4f} ms, on {card}")
     return {"name": "bottleneck_tail", "route": "cuda",
             "source": "nopesac_torch/ops/csrc/bottleneck.cu",
             "replaces": "nopesac_tpu/ops/bottleneck_pallas.py:88", "max_abs_err": worst,
-            "ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
-            "bound_by": by, "library_ms": None, "unfused_ms": total["unfused_ms"],
+            **total, "bound_by": by, "library_ms": None,
             "bf16_max_diff_over_limit": bf16_rel, "per_shape": rows,
             "bf16": {k: v for k, v in bf16.items() if k != "max_diff_over_limit"}}
 
@@ -2076,9 +2137,10 @@ def check_bottleneck_bf16(torch, dev, card):
           f"libbottleneck_wgmma.so (cuobjdump -sass)")
     if hgmma == 0:
         raise SmokeFailure("the bf16 B4 library has no HGMMA instruction: no tensor-core product")
-    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "unfused_ms": 0.0}
+    total = dict.fromkeys(B4_TOTALS, 0.0)
     by_count = {"bytes": 0, "operations": 0}
     worst, worst_ulps, rows = 0.0, 0.0, []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for stage, h, w, cout, mid, n_blocks in B4_STAGES:
         for cin, co, residual in ((cout, mid, False), (mid, cout, True)):
             x, wt, scale, shift, res = b4_inputs(torch, dev, 200 + len(rows), b, cin, co, h, w,
@@ -2109,41 +2171,88 @@ def check_bottleneck_bf16(torch, dev, card):
                 y = F.conv2d(x, w16) * s16 + t16
                 return F.relu(y + res) if residual else F.relu(y)
 
-            ms = cuda_ms(torch, lambda: bottleneck.conv1x1_bn_act_cuda(
-                x, wt, scale, shift, residual=res), iters=20, queued=True)
-            plain_ms = cuda_ms(torch, lambda: bottleneck.conv1x1_bn_act_plain(
-                x, wt, scale, shift, residual=res), warm=2, iters=5, queued=True)
-            unfused_ms = cuda_ms(torch, unfused, iters=20, queued=True)
+            t = b4_times(torch, bottleneck, unfused, x, wt, scale, shift, res)
             bms, by = bound_ms(*b4_cost(b, cin, co, h * w, residual, elem=2), BF16_TC_FLOP_PER_S)
             attrs = bottleneck.kernel_attributes(bf, cfg["bm"], "wgmma", cfg["x_load"])
-            rows.append({"shape": shape, "ms": ms, "plain_ms": plain_ms, "unfused_ms": unfused_ms,
-                         "bound_ms": bms, "bound_by": by, "max_ulps": ulps,
-                         "max_ulps_of_exact": ulps_x, "plain_max_ulps_of_exact": plain_ulps_x,
-                         "config": cfg, "attributes": attrs})
-            print(f"[B4 bottleneck_tail] bf16 {shape} (x{n_blocks} per batch): kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, unfused cuDNN+ATen {unfused_ms:.4f} ms, bound "
-                  f"{bms:.4f} ms ({by}); max |diff| / (2^-7 |ref| + 1e-6) {ulps:.3f} of the plain "
-                  f"version, {ulps_x:.3f} of the exact product (the plain version's own "
+            resident = sms * attrs["blocks_per_sm"]
+            if cfg["x_load"] == "tma" and cfg["split"] == 1 and cfg["blocks"] != min(
+                    cfg["tiles"], resident):
+                raise SmokeFailure(f"B4 bf16 at {shape}: {cfg['blocks']} walking blocks, but the "
+                                   f"card holds {resident} at once")
+            rows.append(dict(t, shape=shape, bound_ms=bms, bound_by=by, max_ulps=ulps,
+                             max_ulps_of_exact=ulps_x, plain_max_ulps_of_exact=plain_ulps_x,
+                             config=cfg, attributes=attrs))
+            print(f"[B4 bottleneck_tail] bf16 {shape} (x{n_blocks} per batch): "
+                  f"{b4_times_text(t)}, bound {bms:.4f} ms ({by}); max |diff| / (2^-7 |ref| + "
+                  f"1e-6) {ulps:.3f} of the plain version, {ulps_x:.3f} of the exact product (the "
+                  f"plain version's own "
                   f"{plain_ulps_x:.3f}, {plain_x} outside), two runs bit-equal; {cfg['variant']} "
                   f"BM {cfg['bm']} BN {bottleneck.TILE_COLS}, X by "
-                  f"{cfg['x_load']}, split {cfg['split']}, {cfg['blocks']} blocks; registers "
-                  f"{attrs['registers']}, shared {attrs['dynamic_smem']} B, spills "
-                  f"{attrs['local_bytes']} B")
-            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("unfused_ms", unfused_ms),
-                           ("bound_ms", bms)):
-                total[key] += n_blocks * v
+                  f"{cfg['x_load']}, split {cfg['split']}, {cfg['blocks']} blocks (the card holds "
+                  f"{resident}); registers {attrs['registers']}, shared {attrs['dynamic_smem']} B, "
+                  f"spills {attrs['local_bytes']} B")
+            for key in B4_TOTALS:
+                total[key] += n_blocks * rows[-1][key]
             by_count[by] += n_blocks
             del x, wt, res, got, again, ref, exact
+    summation_orders = check_b4_summation_orders(torch, dev, bottleneck)
     by = "bytes" if by_count["bytes"] > by_count["operations"] else "operations"
-    print(f"[B4 bottleneck_tail] bf16 per eval batch ({B4_LAUNCHES} calls): kernel "
-          f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, unfused cuDNN+ATen "
-          f"{total['unfused_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms, on {card}")
+    print(f"[B4 bottleneck_tail] bf16 per eval batch ({B4_LAUNCHES} calls): "
+          f"{b4_times_text(total, 'batch')}, bound {total['bound_ms']:.4f} ms, on {card}")
     return {"name": "bottleneck_tail", "route": "cuda", "dtype": "bfloat16", "variant": "wgmma",
             "source": "nopesac_torch/ops/csrc/bottleneck_wgmma.cu",
             "replaces": "nopesac_tpu/ops/bottleneck_pallas.py:88", "max_abs_err": worst,
-            "ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
-            "bound_by": by, "library_ms": None, "unfused_ms": total["unfused_ms"],
-            "launches": 0, "hgmma": hgmma, "per_shape": rows, "max_diff_over_limit": worst_ulps}
+            **total, "bound_by": by, "library_ms": None, "launches": 0, "hgmma": hgmma,
+            "per_shape": rows, "max_diff_over_limit": worst_ulps,
+            "summation_orders": summation_orders}
+
+
+def b4_numpy_inputs(torch, dev, seed, b, cin, cout, h, w):
+    """tests/test_torch_gpu.py's bf16 B4 inputs (numpy's generator), without
+    a residual."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    x = t(np.abs(rng.normal(0, 1, (b, cin, h, w)))).to(torch.bfloat16)
+    wt = t(rng.normal(0, (2.0 / cin) ** 0.5, (cout, cin, 1, 1)))
+    return x, wt, t(rng.uniform(0.5, 1.5, cout)), t(rng.normal(0, 0.1, cout))
+
+
+def check_b4_summation_orders(torch, dev, bottleneck):
+    """B4 bf16 at res4 conv1 on tests/test_torch_gpu.py's seed 3, where the
+    kernel and its plain version (cuBLAS) sum Cin in other f32 orders and
+    round an output to opposite sides of a bf16 boundary: each is held to
+    one ulp of the exact product, and their distance from each other is
+    printed, not bounded. Then the wrapper's host time per call there, the
+    shortest call of the batch, with the f32 weight the model passes (cast
+    per call) and with a bf16 one."""
+    x, wt, scale, shift = b4_numpy_inputs(torch, dev, 3, 2 * N_PAIRS, 1024, 256, 30, 40)
+    got = bottleneck.conv1x1_bn_act_cuda(x, wt, scale, shift)
+    ref = bottleneck.conv1x1_bn_act_plain(x, wt, scale, shift)
+    exact = b4_exact(torch, x, wt, scale, shift, None)
+    torch.cuda.synchronize()
+    over, vs_plain, _ = outside_ulp(torch, got, ref)
+    over_x, vs_exact, _ = outside_ulp(torch, got, exact)
+    plain_over_x, plain_vs_exact, _ = outside_ulp(torch, ref, exact)
+    w16 = wt.to(torch.bfloat16)
+    t32 = kernel_ms(torch, lambda: bottleneck.conv1x1_bn_act_cuda(x, wt, scale, shift))
+    t16 = kernel_ms(torch, lambda: bottleneck.conv1x1_bn_act_cuda(x, w16, scale, shift))
+    print(f"[B4 bottleneck_tail] bf16 res4 1024->256 at the card tests' seed 3: max |diff| / "
+          f"(2^-7 |ref| + 1e-6) {vs_plain:.3f} of the plain version ({over} outside: two f32 "
+          f"summation orders), {vs_exact:.3f} of the exact product ({over_x} outside), the plain "
+          f"version {plain_vs_exact:.3f} of it ({plain_over_x} outside); the wrapper's host "
+          f"{t32['host_us']:.1f} us per call with the f32 weight (cast per call), "
+          f"{t16['host_us']:.1f} with a bf16 one, the device {1e3 * t16['ms']:.1f} us")
+    if over_x:
+        raise SmokeFailure("B4 kernel (bf16) outside one bf16 ulp of the exact product at the "
+                           "card tests' seed 3")
+    return {"vs_plain": vs_plain, "outside_plain": over, "vs_exact": vs_exact,
+            "plain_vs_exact": plain_vs_exact, "host_us_f32_weight": t32["host_us"],
+            "host_us_bf16_weight": t16["host_us"], "device_ms": t16["ms"]}
 
 
 def run_fused_path(torch, dev, model, batches, outs, card):
@@ -3008,10 +3117,11 @@ def numpy_tree(tree):
 
 def time_tree(torch, tree):
     """`--time-tree`: B1 and B2 of the port in `tree` timed by this script
-    (CUDA-event mean over 50 warm calls, device events under the profiler),
-    and B4 in bf16 at the eight eval shapes on phase 11's inputs (queued
-    CUDA-event means over 20 calls, summed over the 24 calls of an eval
-    batch); one JSON line with the card's name and power limit."""
+    (`kernel_ms` over 50 warm calls, device events under the profiler), and
+    B4 in f32 and bf16 at the eight eval shapes on phase 11's inputs
+    (`kernel_ms` over 20 calls, queued and unqueued, summed over the 24
+    calls of an eval batch); one JSON line with the card's name and power
+    limit."""
     from nopesac_torch.ops import bottleneck
 
     dev = torch.device("cuda", 0)
@@ -3020,20 +3130,23 @@ def time_tree(torch, tree):
     with torch.inference_mode():
         for name, call in eval_path_calls(torch, dev).items():
             prof = device_events(torch, call)
-            result[name] = {"ms": cuda_ms(torch, call, iters=50),
-                            "device_events_per_call": prof["per_call"],
-                            "device_ms": prof["device_ms"]}
-        b4 = {"ms": 0.0, "per_shape": {}}
-        for stage, h, w, cout, mid, n_blocks in B4_STAGES:
-            for cin, co, residual in ((cout, mid, False), (mid, cout, True)):
-                x, wt, scale, shift, res = b4_inputs(torch, dev, 200 + len(b4["per_shape"]),
-                                                     2 * N_PAIRS, cin, co, h, w, residual,
-                                                     torch.bfloat16)
-                ms = cuda_ms(torch, lambda: bottleneck.conv1x1_bn_act_cuda(
-                    x, wt, scale, shift, residual=res), iters=20, queued=True)
-                b4["per_shape"][f"{stage} {cin}->{co}"] = ms
-                b4["ms"] += n_blocks * ms
-        result["bottleneck_tail_bf16"] = b4
+            result[name] = dict(kernel_ms(torch, call, iters=50),
+                                device_events_per_call=prof["per_call"],
+                                device_ms=prof["device_ms"])
+        for dtype, seed, key in ((torch.float32, 0, "f32"), (torch.bfloat16, 200, "bf16")):
+            b4 = {"ms": 0.0, "unqueued_ms": 0.0, "host_ms": 0.0, "per_shape": {}}
+            for stage, h, w, cout, mid, n_blocks in B4_STAGES:
+                for cin, co, residual in ((cout, mid, False), (mid, cout, True)):
+                    x, wt, scale, shift, res = b4_inputs(torch, dev, seed + len(b4["per_shape"]),
+                                                         2 * N_PAIRS, cin, co, h, w, residual,
+                                                         dtype)
+                    t = kernel_ms(torch, lambda: bottleneck.conv1x1_bn_act_cuda(
+                        x, wt, scale, shift, residual=res))
+                    b4["per_shape"][f"{stage} {cin}->{co}"] = t
+                    b4["ms"] += n_blocks * t["ms"]
+                    b4["unqueued_ms"] += n_blocks * t["unqueued_ms"]
+                    b4["host_ms"] += n_blocks * t["host_us"] / 1e3
+            result[f"bottleneck_tail_{key}"] = b4
     print(json.dumps(result))
     return 0
 

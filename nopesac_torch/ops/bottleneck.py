@@ -13,6 +13,8 @@ block takes this path only in eval mode.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from typing import Optional
 
 import torch
@@ -61,8 +63,14 @@ def b4_config(b: int, cin: int, cout: int, p: int, dtype: torch.dtype = torch.fl
     else the masked scalar one. Off `wgmma`, BM is 64 where Cout <= 64, else
     128. Cin is split in 2, 4 or 8 while the grid is under one wave of SMS x
     BLOCKS_PER_SM blocks (`wgmma`, parts >= WGMMA_MIN_PART) or two (`vec`,
-    parts >= MIN_PART). On `wgmma` with X by TMA and no split, at most one
-    wave of blocks stays resident and walks the tiles."""
+    parts >= MIN_PART). On `wgmma` with X by TMA and no split, one wave of
+    blocks (at most) walks the tiles; `blocks` is the grid the library
+    launches."""
+    return dict(_config(b, cin, cout, p, dtype, aligned))
+
+
+@functools.lru_cache(maxsize=None)
+def _config(b, cin, cout, p, dtype, aligned):
     wgmma = dtype == torch.bfloat16 and aligned and p % 4 == 0 and cin % WGMMA_K == 0
     bm = 64 if wgmma or cout <= 64 else 128
     vec = dtype == torch.float32 and aligned and p % 4 == 0 and cin % 4 == 0
@@ -89,60 +97,70 @@ def b4_config(b: int, cin: int, cout: int, p: int, dtype: torch.dtype = torch.fl
 last_config: dict = {}  # the config of the latest CUDA launch
 
 
-def _aligned(*tensors) -> bool:
-    return all(t.data_ptr() % 16 == 0 for t in tensors if t is not None)
+@functools.lru_cache(maxsize=None)
+def _entry(lib: str, name: str, n_int: int):
+    """A C entry point taking six pointers, `n_int` ints and the stream,
+    with its ctypes signature set once."""
+    fn = getattr(_build.load(lib), name)
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def conv1x1_bn_act_cuda(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                         shift: torch.Tensor, residual: Optional[torch.Tensor] = None,
                         relu: bool = True) -> torch.Tensor:
     """Launch the variant `b4_config` picks on x [B, Cin, *spatial] and the
-    conv weight [Cout, Cin(, 1, 1)]; residual [B, Cout, *spatial] or None."""
-    if x.device.type != "cuda":
-        raise ValueError(f"bottleneck kernel takes CUDA tensors, got {x.device}")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"bottleneck kernel takes f32 or bf16 inputs, got {x.dtype}")
-    if x.dim() < 3:
-        raise ValueError(f"bottleneck kernel takes x [B, Cin, *spatial], got {tuple(x.shape)}")
-    b, cin = x.shape[:2]
-    cout = w.shape[0]
+    conv weight [Cout, Cin(, 1, 1)]; residual [B, Cout, *spatial] or None.
+    A bf16 call takes the card 20-80 us, about what this wrapper takes the
+    host, so it does no work twice: the config and the C entry points are
+    cached, and tensors already in their dtype and layout are not copied."""
+    dev, dtype, shape = x.device, x.dtype, x.shape
+    if dev.type != "cuda":
+        raise ValueError(f"bottleneck kernel takes CUDA tensors, got {dev}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"bottleneck kernel takes f32 or bf16 inputs, got {dtype}")
+    if len(shape) < 3:
+        raise ValueError(f"bottleneck kernel takes x [B, Cin, *spatial], got {tuple(shape)}")
+    b, cin, cout = shape[0], shape[1], w.shape[0]
     if w.numel() != cout * cin:
         raise ValueError(f"weight {tuple(w.shape)} is not a 1x1 conv from {cin} channels")
-    out_shape = (b, cout, *x.shape[2:])
+    out_shape = (b, cout, *shape[2:])
     if scale.shape != (cout,) or shift.shape != (cout,):
         raise ValueError(f"scale/shift must be [{cout}], got {tuple(scale.shape)}, "
                          f"{tuple(shift.shape)}")
-    if residual is not None and (tuple(residual.shape) != out_shape or residual.dtype != x.dtype):
-        raise ValueError(f"residual must be {x.dtype} {out_shape}, got {residual.dtype} "
+    if residual is not None and (residual.shape != out_shape or residual.dtype != dtype):
+        raise ValueError(f"residual must be {dtype} {out_shape}, got {residual.dtype} "
                          f"{tuple(residual.shape)}")
-    tensors = [t for t in (x, w, scale, shift, residual) if t is not None]
-    if any(t.device != x.device for t in tensors):
+    if (w.device != dev or scale.device != dev or shift.device != dev
+            or (residual is not None and residual.device != dev)):
         raise ValueError("bottleneck inputs must lie on one device")
-    refuse_autograd(KERNEL, *tensors)
+    refuse_autograd(KERNEL, x, w, scale, shift, *(() if residual is None else (residual,)))
     x = x.contiguous()
-    w = w.to(x.dtype).contiguous()
-    scale = scale.to(torch.float32).contiguous()
-    shift = shift.to(torch.float32).contiguous()
+    w = (w if w.dtype == dtype else w.to(dtype)).contiguous()
+    scale = (scale if scale.dtype == torch.float32 else scale.float()).contiguous()
+    shift = (shift if shift.dtype == torch.float32 else shift.float()).contiguous()
     res = None if residual is None else residual.contiguous()
-    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
-    p = x[0, 0].numel()
-    cfg = b4_config(b, cin, cout, p, x.dtype, _aligned(x, w, res, out))
+    out = torch.empty(out_shape, dtype=dtype, device=dev)
     ptrs = (x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
             None if res is None else res.data_ptr(), out.data_ptr())
+    aligned = (ptrs[0] | ptrs[1] | (ptrs[4] or 0) | ptrs[5]) % 16 == 0
+    p = math.prod(shape[2:])
+    cfg = _config(b, cin, cout, p, dtype, aligned)
     if cfg["variant"] == "wgmma":
         name = "nopesac_conv1x1_bn_act_wgmma"
-        fn = getattr(_build.load("bottleneck_wgmma"), name)
-        args = (b, cin, cout, p, int(relu), int(cfg["x_load"] == "tma"), cfg["split"])
+        args = (b, cin, cout, p, int(relu), int(cfg["x_load"] == "tma"), cfg["split"],
+                cfg["blocks"])
+        fn = _entry("bottleneck_wgmma", name, len(args))
     else:
         name = "nopesac_conv1x1_bn_act"
-        fn = getattr(_build.load("bottleneck"), name)
-        args = (b, cin, cout, p, int(relu), int(x.dtype == torch.bfloat16), cfg["bm"],
+        args = (b, cin, cout, p, int(relu), int(dtype == torch.bfloat16), cfg["bm"],
                 int(cfg["variant"] == "vec"), cfg["split"])
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * len(args) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(*ptrs, *args, stream)
+        fn = _entry("bottleneck", name, len(args))
+    # the launch goes to x's card, on its current stream (the raw handle:
+    # `torch.cuda.current_stream` builds a Stream object per call)
+    with torch.cuda.device(dev):
+        err = fn(*ptrs, *args, torch._C._cuda_getCurrentRawStream(dev.index))
     _build.check(err, name)
     LAUNCHES.bump(KERNEL)
     last_config.clear()
@@ -152,21 +170,24 @@ def conv1x1_bn_act_cuda(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 
 def kernel_attributes(dtype: torch.dtype, bm: int, variant: str, x_load: str = "tma") -> dict:
     """Registers, shared memory and spill bytes of one compiled variant
-    (cudaFuncGetAttributes), for the record of a run on the card."""
-    vals = (ctypes.c_int * 5)()
+    (cudaFuncGetAttributes), and for `wgmma` the blocks an SM holds at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), for the record of a run
+    on the card."""
+    names = ["registers", "static_smem", "dynamic_smem", "local_bytes", "max_threads"]
     if variant == "wgmma":
         name = "nopesac_conv1x1_bn_act_wgmma_attrs"
         fn = getattr(_build.load("bottleneck_wgmma"), name)
         args = (int(x_load == "tma"),)
+        names.append("blocks_per_sm")
     else:
         name = "nopesac_conv1x1_bn_act_attrs"
         fn = getattr(_build.load("bottleneck"), name)
         args = (int(dtype == torch.bfloat16), bm, int(variant == "vec"))
+    vals = (ctypes.c_int * len(names))()
     fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _build.check(fn(*args, vals), name)
-    return dict(zip(("registers", "static_smem", "dynamic_smem", "local_bytes", "max_threads"),
-                    vals))
+    return dict(zip(names, vals))
 
 
 def conv1x1_bn_act(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,

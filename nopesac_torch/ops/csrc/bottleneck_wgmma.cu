@@ -40,16 +40,17 @@
 //     it. The second accumulator is why a block has one consumer warpgroup:
 //     two blocks of 160 threads fit an SM, where one of 288 would leave no
 //     room for a second.
-//   - TMA path without a split (every eval shape but res5's): the blocks the
-//     card holds at once stay and walk the tiles, Cout tile first, so the
-//     producer loads the next tile while the consumers finish this one. The
-//     residual tile comes by TMA in the 128-byte swizzle; each consumer
-//     thread applies scale, shift, the residual and ReLU to its own fragment
-//     (two rows, kept in f32 registers), rounds once to bf16 and writes the
-//     result over the residual's place (the swizzle keeps these 4-byte
-//     accesses free of bank conflicts); two TMA stores take the tile out and
-//     drop what lies past Cout and P, and a barrier lets the producer load
-//     the next residual once they have read it.
+//   - TMA path without a split (every eval shape but res5's): one wave of
+//     blocks (the grid `b4_config` passes: 132 SMs x the 2 an SM holds)
+//     stays and walks the tiles, Cout tile first, so the producer loads
+//     the next tile while the consumers finish this one. The residual tile
+//     comes by TMA in the 128-byte swizzle; each consumer thread applies
+//     scale, shift, the residual and ReLU to its own fragment (two rows,
+//     kept in f32 registers), rounds once to bf16 and writes the result
+//     over the residual's place (the swizzle keeps these 4-byte accesses
+//     free of bank conflicts); two TMA stores take the tile out and drop
+//     what lies past Cout and P, and a barrier lets the producer load the
+//     next residual once they have read it.
 //   - Otherwise a block has one tile, and its f32 tile is staged in the ring
 //     ([64][136] floats, conflict-free float2 stores); every thread of the
 //     block then reads 8 (4 at P = 300) columns of a row, adds the residual
@@ -80,7 +81,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <algorithm>
 #include <cstdint>
 #include <cstring>
 
@@ -581,18 +581,15 @@ int make_maps(CUtensorMap* wmap, CUtensorMap* xmap, CUtensorMap* rmap, CUtensorM
 
 template <bool kTma>
 int launch(const void* x, const void* w, const void* scale, const void* shift, const void* res,
-           void* y, int b, int cin, int cout, int p, int relu, int split, void* stream) {
+           void* y, int b, int cin, int cout, int p, int relu, int split, int blocks,
+           void* stream) {
   auto kern = conv1x1_bn_act_wgmma_kernel<kTma>;
-  static int resident = 0;  // blocks the card holds at once (one instantiation, one count)
-  if (resident == 0) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    int dev = 0, sms = 0, per_sm = 0;
-    if (e == cudaSuccess) e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, kSmem);
+  static bool ready = false;  // the shared-memory opt-in, once per instantiation
+  if (!ready) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    resident = sms * per_sm;
+    ready = true;
   }
   CUtensorMap wmap, xmap, rmap, ymap;
   const int err =
@@ -603,8 +600,11 @@ int launch(const void* x, const void* w, const void* scale, const void* shift, c
   cudaLaunchConfig_t cfg = {};
   const int m_tiles = (cout + kBM - 1) / kBM;
   const int col_tiles = kTma ? b * tiles_per_image : (n_cols + kBN - 1) / kBN;
-  cfg.gridDim = kTma && split == 1 ? dim3(std::min(m_tiles * col_tiles, resident))
-                                   : dim3(m_tiles, col_tiles, split);
+  // walking blocks take the caller's grid; otherwise a block per tile and part
+  const bool walk = kTma && split == 1;
+  if (walk ? blocks < 1 || blocks > m_tiles * col_tiles : blocks != m_tiles * col_tiles * split)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cfg.gridDim = walk ? dim3(blocks) : dim3(m_tiles, col_tiles, split);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = kSmem;
   cfg.stream = static_cast<cudaStream_t>(stream);
@@ -635,24 +635,32 @@ bool config_ok(int cin, int p, int tma_x, int split) {
 // f32 scale/shift [Cout]. The caller checks 16-byte aligned pointers.
 // Config: tma_x 1 to load X (and the residual) by TMA (P % 8 == 0), 0 to
 // load X by cp.async (P % 4 == 0); split 1, 2, 4 or 8 with Cin % (64 *
-// split) == 0. Returns cudaGetLastError() after the launch, or a
-// cudaError_t for a config outside these or a tensor map the driver refuses.
+// split) == 0; blocks the grid: with tma_x and no split the blocks that
+// walk the tiles (1 to the tile count), otherwise tiles x split. Returns
+// cudaGetLastError() after the launch, or a cudaError_t for a config
+// outside these or a tensor map the driver refuses.
 extern "C" int nopesac_conv1x1_bn_act_wgmma(const void* x, const void* w, const void* scale,
                                             const void* shift, const void* res, void* y, int b,
                                             int cin, int cout, int p, int relu, int tma_x,
-                                            int split, void* stream) {
+                                            int split, int blocks, void* stream) {
   if (!config_ok(cin, p, tma_x, split)) return static_cast<int>(cudaErrorInvalidValue);
-  return tma_x ? launch<true>(x, w, scale, shift, res, y, b, cin, cout, p, relu, split, stream)
-               : launch<false>(x, w, scale, shift, res, y, b, cin, cout, p, relu, split, stream);
+  return tma_x ? launch<true>(x, w, scale, shift, res, y, b, cin, cout, p, relu, split, blocks,
+                              stream)
+               : launch<false>(x, w, scale, shift, res, y, b, cin, cout, p, relu, split, blocks,
+                               stream);
 }
 
-// Registers, static and dynamic shared bytes, local (spill) bytes and max
-// threads per block of one compiled variant, into out[0..4]. Returns a
-// cudaError_t.
+// Registers, static and dynamic shared bytes, local (spill) bytes, max
+// threads per block and the blocks an SM holds at once of one compiled
+// variant, into out[0..5]. Returns a cudaError_t.
 extern "C" int nopesac_conv1x1_bn_act_wgmma_attrs(int tma_x, int* out) {
+  const void* kern = tma_x ? reinterpret_cast<const void*>(conv1x1_bn_act_wgmma_kernel<true>)
+                           : reinterpret_cast<const void*>(conv1x1_bn_act_wgmma_kernel<false>);
   cudaFuncAttributes a;
-  const cudaError_t e = tma_x ? cudaFuncGetAttributes(&a, conv1x1_bn_act_wgmma_kernel<true>)
-                              : cudaFuncGetAttributes(&a, conv1x1_bn_act_wgmma_kernel<false>);
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, kern);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[5], kern, kThreads, kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
   out[0] = a.numRegs;
   out[1] = static_cast<int>(a.sharedSizeBytes);

@@ -113,26 +113,27 @@ def test_b4_config_takes_the_scalar_variant_off_the_fast_path(b, cin, cout, p, d
     assert cfg["variant"] == "scalar" and cfg["split"] == 1
 
 
-@pytest.mark.parametrize("b,cin,cout,p", [(8, *shape) for shape in EVAL_SHAPES]
-                         + [(2, 64, 256, 300)])  # and the JAX test's shape
-def test_b4_config_takes_the_wgmma_variant_for_bf16(b, cin, cout, p):
+@pytest.mark.parametrize("b,cin,cout,p,x_load,split,tiles,blocks", [
+    (8, 256, 64, 19200, "tma", 1, 1200, 264),      # res2 conv1
+    (8, 64, 256, 19200, "tma", 1, 4800, 264),      # res2 conv3
+    (8, 512, 128, 4800, "tma", 1, 608, 264),       # res3 conv1
+    (8, 128, 512, 4800, "tma", 1, 2432, 264),      # res3 conv3
+    (8, 1024, 256, 1200, "tma", 1, 320, 264),      # res4 conv1
+    (8, 256, 1024, 1200, "tma", 1, 1280, 264),     # res4 conv3
+    (8, 2048, 512, 300, "cp.async", 2, 152, 304),  # res5 conv1: under one wave, Cin split
+    (8, 512, 2048, 300, "cp.async", 1, 608, 608),  # res5 conv3
+    (2, 64, 256, 300, "cp.async", 1, 20, 20),      # the JAX test's shape
+])
+def test_b4_config_takes_the_wgmma_variant_for_bf16(b, cin, cout, p, x_load, split, tiles,
+                                                    blocks):
     """Every bf16 shape of the fused-tail eval batch, and the JAX test's,
-    runs on the tensor cores: BM 64, X by TMA where a bf16 row of P is a
-    multiple of 16 bytes and by cp.async at P = 300; Cin is split only
-    while the grid is under one wave, in parts of at least 256; on the TMA
-    path without a split at most one wave of blocks walks the tiles."""
+    runs on the tensor cores (the table in `csrc/bottleneck_wgmma.cu`): BM
+    64, X by TMA where a bf16 row of P is a multiple of 16 bytes and by
+    cp.async at P = 300; on the TMA path one wave of 132 x 2 blocks walks
+    the tiles, elsewhere a block per tile and part."""
     cfg = bottleneck.b4_config(b, cin, cout, p, torch.bfloat16)
-    assert cfg["variant"] == "wgmma" and cfg["bm"] == 64
-    assert cfg["x_load"] == ("tma" if p % 8 == 0 else "cp.async")
-    cols = b * -(-p // bottleneck.TILE_COLS) if p % 8 == 0 else -(-(b * p) // bottleneck.TILE_COLS)
-    assert cfg["tiles"] == -(-cout // 64) * cols
-    wave = bottleneck.SMS * bottleneck.BLOCKS_PER_SM
-    walk = cfg["x_load"] == "tma" and cfg["split"] == 1
-    assert cfg["blocks"] == (min(cfg["tiles"], wave) if walk else cfg["tiles"] * cfg["split"])
-    assert cin % (bottleneck.WGMMA_K * cfg["split"]) == 0
-    if cfg["split"] > 1:
-        assert cfg["tiles"] * cfg["split"] // 2 < bottleneck.SMS * bottleneck.BLOCKS_PER_SM
-        assert cin // cfg["split"] >= bottleneck.WGMMA_MIN_PART
+    assert cfg == {"variant": "wgmma", "bm": 64, "x_load": x_load, "split": split,
+                   "tiles": tiles, "blocks": blocks}
 
 
 def _perturb_bn(tree, rng):

@@ -355,6 +355,41 @@ def test_bottleneck_kernel_at_the_eval_shapes(cuda, b, cin, cout, h, w, residual
         assert torch.equal(got, again)
 
 
+def _b4_exact(x, wt, scale, shift, res):
+    """B4's function (with ReLU) in f64 on the card, rounded once to bf16:
+    the exact product of the bf16 inputs (`chip_smoke.py:b4_exact`)."""
+    b, cin = x.shape[:2]
+    acc = torch.matmul(wt.reshape(wt.shape[0], -1).to(torch.bfloat16).double(),
+                       x.reshape(b, cin, -1).double())
+    acc = acc * scale.double()[:, None] + shift.double()[:, None]
+    if res is not None:
+        acc = acc + res.reshape(acc.shape).double()
+    return torch.relu(acc).to(torch.bfloat16).reshape(b, wt.shape[0], *x.shape[2:])
+
+
+def _within_one_ulp(got, ref):
+    diff = (got.float() - ref.float()).abs()
+    return bool((diff <= BF16_ULP * ref.float().abs() + 1e-6).all()), float(diff.max())
+
+
+@pytest.mark.parametrize("seed", [2, 3])
+@pytest.mark.parametrize("b,cin,cout,h,w,residual", EVAL_SHAPES)
+def test_bottleneck_kernel_bf16_within_one_ulp_of_the_exact_product(cuda, seed, b, cin, cout,
+                                                                     h, w, residual):
+    """bf16 at the eight eval shapes held to the exact product, the bound
+    that does not depend on a summation order. Against the plain version
+    (cuBLAS's f32 sums in another order) one ulp can be exceeded: at seed 3,
+    res4 conv1 (8, 1024 -> 256, P 1200), the two round one output to
+    opposite sides of a bf16 boundary, 1.30 limits apart, while each lies
+    within one ulp of the exact product."""
+    x, wt, scale, shift, res = _b4_inputs(cuda, seed, b, cin, cout, h, w, residual,
+                                          torch.bfloat16)
+    got = bottleneck.conv1x1_bn_act(x, wt, scale, shift, residual=res)
+    assert bottleneck.last_config["variant"] == "wgmma"
+    ok, worst = _within_one_ulp(got, _b4_exact(x, wt, scale, shift, res))
+    assert ok, worst
+
+
 @pytest.mark.parametrize("b,cin,cout,h,w,residual", EVAL_SHAPES)
 def test_bottleneck_kernel_bf16_at_the_eval_shapes(cuda, b, cin, cout, h, w, residual):
     """bf16 at the eight eval shapes (chip_smoke.py phase 11's bound): the
