@@ -43,7 +43,8 @@ Phases, in order; any failure exits non-zero before the last line:
      planes per view from the port's generator, a warm-up step, then 3
      steps: every loss of the JAX train_forward present and finite, no
      skipped step, a finite positive gradient norm in each of the four
-     modules, each B3 counter at 3 per step, B1 and B2 not launched;
+     modules, each B3 counter at 3 per step, H1 (the matcher) at 1 per
+     step, B1 and B2 not launched;
  10. train reference: one train step of one pair at 96x128
      (configs/smoke_synthetic.yaml, dropout 0, AIM random poses injected)
      on the card and on the CPU from the same weights and batch: the match
@@ -85,7 +86,7 @@ Phases, in order; any failure exits non-zero before the last line:
      4: loss rows for iterations 0 and 3 in metrics.json, finite, no skipped
      step; the eval row with tests/test_end_to_end.py's metrics, finite;
      model_0000002.pth, model_0000004.pth, model_final.pth and
-     last_checkpoint; B3 launched 3 times per step and B1/B2 once per eval
+     last_checkpoint; B3 launched 3 times and H1 once per step, B1/B2 once per eval
      batch; a second Trainer resumed from the last checkpoint equal bit for
      bit to the first (model, AdamW moments, update count, generator); the
      weight chain: a train_mp3d_step1 model loads the step-3 file (every
@@ -130,7 +131,7 @@ Phases, in order; any failure exits non-zero before the last line:
      within 5e-5 and equal on B's ranks, the parameters bit-equal on B's
      ranks, the evaluation at phase 13's (keys equal, AP, matching and
      camera accuracies equal, camera errors within 1e-3; the plane
-     parameters' errors printed); each rank's B3 at 3 launches per step and
+     parameters' errors printed); each rank's B3 at 3 launches and H1 at 1 per step and
      B1/B2 at one per evaluation batch, no skipped step, continuous.pkl
      written once with 16 pairs. Prints each launch's ms/step, peak memory
      per rank, the gradient all-reduce's ms and MiB, and B's evaluation
@@ -157,7 +158,7 @@ Phases, in order; any failure exits non-zero before the last line:
  19. the train branches: configs/train_mp3d_step3.yaml with MODEL.DEPTH_ON
      (f32, REMAT off) on phase 9's batches, a warm-up and 3 steps: every
      loss of the JAX train_forward and loss_depth_pixel finite, each B3
-     counter at 3 per step, ms/step and peak memory beside phase 9's; one
+     counter at 3 and H1 at 1 per step, ms/step and peak memory beside phase 9's; one
      step of the shipped bf16 policy with DEPTH_ON and
      MODEL.FPN_TRAIN_DTYPE bfloat16 (as shipped the pixel path trains in
      f32): the depth head's output bf16, every loss finite; then phase 10's
@@ -193,8 +194,8 @@ Phases, in order; any failure exits non-zero before the last line:
      unexpected); (c) configs/train_scannet_step2.yaml (REFINE_ON) from step
      1's model_final.pth for 2 steps, the weight chain checked, the eval hook
      once over the 8 test pairs: in (b) and (c) every loss of the JAX
-     train_forward of the step finite, no skipped step, B3 3 launches per
-     step and B1/B2 once per hook batch; (d) `engine/test.py --eval-only` on
+     train_forward of the step finite, no skipped step, B3 3 launches and H1
+     1 per step and B1/B2 once per hook batch; (d) `engine/test.py --eval-only` on
      configs/inference_scannet.yaml (f32, unfused) with step 2's weights
      over scannet_test: the artifacts written, B1 and B2 once per batch, no
      B4; the offline evaluator's main in process in AP and camera modes
@@ -206,9 +207,27 @@ Phases, in order; any failure exits non-zero before the last line:
      waits and peak memory, and the evaluation's pairs/s. Cut: the pairs (18
      train and 8 test of a split's thousands) and the steps (3 and 2 of 30 k
      and 10 k).
+ 22. H1 (hungarian, the matcher's batched Jonker-Volgenant assignment) on
+     the costs [96, 50, 50] of a full-width train detect (phase 9's config
+     and second batch: 3 supervision levels x 32 views, 12 planes per
+     view): kernel against its plain version (on the card and on the CPU)
+     bit for bit, two runs bit-equal, each GT plane matched once, the total
+     cost within 1e-5 relative of scipy's optimum (`hungarian_host`);
+     bit-equal again on the seeded families of `losses/hungarian_cases.py`
+     (normal, tie-heavy integers, NG < NQ padded, NaN and +-inf) at
+     [96, 50] and [4, 127]; `match_planes_multi` under
+     torch.cuda.set_sync_debug_mode("error") (no host sync, one launch);
+     the host syncs left in one train forward and backward and in the
+     update, counted in "warn" mode by site; one device kernel per call
+     (under torch.profiler right after phase 4, at this shape on seeded
+     costs: the profiler sees the card there);
+     timed beside its plain version and the host path it replaced (the
+     device-to-host copy, scipy per problem and the match back), with its
+     bound and an estimate of its dependency floor (assumed latencies, not
+     measured; printed, not in the kernels line).
 Phases 11-13, 20, 15 and 18 run right after phase 7, while the eval model is
-on the card; phases 14, 16 and 19 run after phase 10, phase 17 after phase 14,
-phase 21 last.
+on the card; phase 22 right after phase 9; phases 14, 16 and 19 run after
+phase 10, phase 17 after phase 14, phase 21 last.
 Phases 6, 7 and 12 hold the card to the CPU, or the fused path to the
 unfused one, as the CPU is held to JAX in tests/test_torch_slice.py: valid
 planes equal, labels agree on >= 99.9% of pixels, log-scores within 1.5e-3
@@ -217,7 +236,7 @@ tests/test_torch_train.py.
 Then one JSON line with every kernel's launches, error and times, and, last,
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The launches of B1 and B2 are those of the eval path (phase 5), those of B3
-those of the train path (phase 9), those of B4 those of the fused-tail eval
+and H1 those of the train path (phase 9), those of B4 those of the fused-tail eval
 path (phase 12); phases 13-16 check their own. B4's times are per eval
 batch: the sum over its 24 calls. The entries of B3 and B4 carry a "bf16"
 object with the same keys for their bf16 variant (B4's launches those of
@@ -293,6 +312,12 @@ MATCH_GAP = 1e-3
 # table's rates use
 SINKHORN_LATENCY = {"lds": 30, "shfl": 25, "alu": 4, "expf": 46, "logf": 80, "barrier": 30}
 SM_CLOCK_HZ = 1.755e9
+# An estimate of H1's dependency floor, not a measurement: assumed latencies
+# in cycles of one Dijkstra step's chain (the row's shared loads, three f32
+# additions, the lane's 4-column argmin, five shuffle levels of a (value,
+# index) argmin, the winner's row4col load) and of the work per solved row
+# (the dual updates and a one-step augmenting walk, three warp barriers)
+HUNGARIAN_LATENCY = {"lds": 30, "shfl": 25, "alu": 4, "syncwarp": 20}
 # B4 at 480x640 with 8 images (4 pairs, both views): per stage the map size,
 # the block's width and bottleneck width, and its identity blocks
 B4_STAGES = (("res2", 120, 160, 256, 64, 2), ("res3", 60, 80, 512, 128, 3),
@@ -1045,7 +1070,8 @@ def timed_train_steps(torch, cfg, batches, card, what, loss_keys=TRAIN_LOSS_KEYS
           f"{TRAIN_PAIRS / ms * 1e3:.2f} pairs/s, peak memory {peak / 2**30:.2f} GiB "
           f"(max_memory_allocated) on {card}; launches {counts}")
     # the model sends B3 f32 logits under every policy: no bf16-logit launch
-    want = launches_want(mask_loss_fwd=3 * TRAIN_STEPS, mask_loss_bwd=3 * TRAIN_STEPS)
+    want = launches_want(mask_loss_fwd=3 * TRAIN_STEPS, mask_loss_bwd=3 * TRAIN_STEPS,
+                         hungarian=TRAIN_STEPS)
     if counts != want:
         raise SmokeFailure(f"train path ({what}) launches {counts}, want {want}")
     del model, step
@@ -1113,6 +1139,218 @@ def assignment_gap(cost, n_gt):
         rr, cc = linear_sum_assignment(alt)
         second = min(second, alt[rr, cc].sum())
     return second - best
+
+
+def hungarian_floor_ms(steps, rows):
+    """An estimate of H1's dependency floor: its warps run side by side, so
+    the problem with the longest chain, `steps` Dijkstra steps and `rows`
+    solved rows, at the assumed latencies of HUNGARIAN_LATENCY and
+    SM_CLOCK_HZ."""
+    lat = HUNGARIAN_LATENCY
+    step = (2 * lat["lds"] + 3 * lat["alu"] + 4 * 4 * lat["alu"]
+            + 5 * (lat["shfl"] + 4 * lat["alu"]) + 2 * lat["alu"])
+    row = 3 * lat["syncwarp"] + 4 * lat["lds"] + 2 * lat["alu"] + 4 * lat["lds"]
+    return (steps * step + rows * row) / SM_CLOCK_HZ * 1e3, step, row
+
+
+def sync_sites(torch, fn):
+    """Run fn under torch.cuda.set_sync_debug_mode("warn"): the host syncs
+    it makes, counted by the innermost frame of this repository's code that
+    made them ("path:line function")."""
+    import traceback
+    import warnings
+
+    sites = {}
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        site = "outside the repository"
+        for fr in reversed(traceback.extract_stack()[:-1]):
+            path = os.path.abspath(fr.filename)
+            if path.startswith(REPO + os.sep) and path != os.path.abspath(__file__):
+                site = f"{os.path.relpath(path, REPO)}:{fr.lineno} {fr.name}"
+                break
+        sites[site] = sites.get(site, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sites
+
+
+def hungarian_events(torch, dev):
+    """H1's device events per call under torch.profiler (one device kernel,
+    no copy or cast around it), at phase 22's shape: seeded costs [96, 50,
+    50], 12 GT planes per problem. Taken right after phase 4, where the
+    profiler sees the card: in one run it recorded no device event at all
+    in phase 22's place, after the phases between."""
+    from nopesac_torch.ops import hungarian as h1
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    cost = torch.randn((3 * 2 * TRAIN_PAIRS, 50, 50), generator=gen, device=dev) * 5
+    num_gt = torch.full((cost.shape[0],), TRAIN_PLANES, dtype=torch.int64, device=dev)
+    prof = device_events(torch, lambda: h1.hungarian_cuda(cost, num_gt))
+    print(f"[H1 hungarian] torch.profiler: {prof['per_call']:g} device events per call "
+          f"({prof['names']}), {prof['device_ms']:.4f} device ms per call")
+    if prof["per_call"] != 1:
+        raise SmokeFailure("H1 must be one device kernel per call")
+    return prof
+
+
+def check_hungarian(torch, dev, card, batches, prof):
+    """Phase 22: kernel H1 (the matcher) against its plain version, bit for
+    bit, on the card's own costs from a full-width train detect (3 levels x
+    32 views: [96, 50, 50]) and on the seeded families of
+    `losses/hungarian_cases.py`; optimal against `hungarian_host` (scipy);
+    `match_planes_multi` with no host sync; the remaining syncs of one train
+    step by site; times and bound."""
+    from nopesac_torch.data.packing import unpack_targets
+    from nopesac_torch.engine.train import TrainStep, build_train_model
+    from nopesac_torch.losses import hungarian as H
+    from nopesac_torch.losses.criterion import compute_match_cost, match_planes_multi
+    from nopesac_torch.losses.hungarian_cases import FAMILIES, SHAPES, cost_family
+    from nopesac_torch.ops import hungarian as h1
+    from nopesac_torch.utils.device import LAUNCHES
+
+    cfg = load_train_cfg(TRAIN_CONFIG, F32_TRAIN + [
+        "SOLVER.IMS_PER_BATCH", str(TRAIN_PAIRS), "INPUT.IMAGE_SIZE", "(480, 640)"])
+    model = build_train_model(cfg, device=dev, seed=0)
+    batch = batches[1]
+    weights = model.train_settings.match_cost_weights()
+    t0, t1 = unpack_targets(batch["targets0"]), unpack_targets(batch["targets1"])
+    targets = {k: torch.cat([t0[k], t1[k]]) for k in t0}
+    with torch.no_grad():
+        images = torch.cat([batch["image0"], batch["image1"]]).permute(0, 3, 1, 2).contiguous()
+        _, out, _ = model.detect(images)
+        levels = [out] + list(out["aux_outputs"])
+        cost = torch.cat([compute_match_cost(o, targets, weights) for o in levels])
+        num_gt = targets["gt_valid"].to(torch.int64).sum(dim=-1).repeat(len(levels))
+    p, nq, ng = cost.shape
+    if (p, nq, ng) != (3 * 2 * TRAIN_PAIRS, 50, 50) or cost.dtype != torch.float32:
+        raise SmokeFailure(f"H1: the train step's costs are {cost.dtype} {(p, nq, ng)}, want "
+                           f"f32 {(3 * 2 * TRAIN_PAIRS, 50, 50)}")
+
+    # the card's costs: kernel, plain version on the card and on the CPU, scipy
+    got = h1.hungarian_cuda(cost, num_gt)
+    again = h1.hungarian_cuda(cost, num_gt)
+    plain_card = H.hungarian_plain(cost, num_gt)
+    plain_cpu = H.hungarian_plain(cost.cpu(), num_gt.cpu())
+    host = H.hungarian_host(cost, num_gt)
+    steps = torch.zeros(p, dtype=torch.int64)  # the Dijkstra steps of each problem, for the bound
+    H.lap_jv_rect(H.pad_and_sanitize(cost.cpu()).transpose(1, 2), num_gt.cpu().clamp(0, ng), steps)
+    torch.cuda.synchronize()
+    n_bad = int((got.cpu() != plain_cpu).sum()) + int((got != plain_card).sum())
+    sane = H.pad_and_sanitize(cost).double().cpu()
+
+    def total(match):
+        m = match.cpu()
+        return [float(sane[b][m[b] >= 0, m[b][m[b] >= 0]].sum()) for b in range(p)]
+
+    mine, best = total(got), total(host)
+    gap = max(abs(a - b) / max(abs(b), 1.0) for a, b in zip(mine, best))
+    once = all(sorted(got[b][got[b] >= 0].tolist()) == list(range(int(num_gt[b])))
+               for b in range(p))
+    same_as_host = int((got == host).all(dim=1).sum())
+    print(f"[H1 hungarian] the train step's costs {(p, nq, ng)} f32, num_gt "
+          f"{sorted(set(num_gt.tolist()))}: mismatches against the plain version (card and "
+          f"CPU) {n_bad}; two runs bit-equal {torch.equal(got, again)}; "
+          f"each GT once {once}; total cost against scipy's optimum, worst relative gap "
+          f"{gap:.3e}; {same_as_host} of {p} matches equal scipy's; Dijkstra steps per problem "
+          f"max {int(steps.max())}, total {int(steps.sum())}; kernel {h1.kernel_attributes()}")
+    if n_bad or not torch.equal(got, again) or not once or not gap <= 1e-5:
+        raise SmokeFailure("H1 disagrees with its plain version, or its match is not optimal")
+
+    # the profiler here, after the phases between 4 and 22: printed, not held
+    # (PERF.md §7: in one run it saw no device event in this place)
+    late = device_events(torch, lambda: h1.hungarian_cuda(cost, num_gt))
+    print(f"[H1 hungarian] torch.profiler in phase 22's place: {late['per_call']:g} device "
+          f"events per call ({late['names']}); right after phase 4: {prof['per_call']:g}")
+
+    # the seeded families
+    for n_prob, n in SHAPES:
+        for family in FAMILIES:
+            c, k, _ = cost_family(family, n_prob, n, seed=7)
+            ref = H.hungarian_plain(torch.from_numpy(c), torch.from_numpy(k))
+            out_k = h1.hungarian_cuda(torch.from_numpy(c).to(dev), torch.from_numpy(k).to(dev))
+            if not torch.equal(out_k.cpu(), ref):
+                raise SmokeFailure(f"H1 disagrees with its plain version on {family} "
+                                   f"[{n_prob}, {n}, {c.shape[2]}]")
+    print(f"[H1 hungarian] bit-equal to the plain version on the families {FAMILIES} at "
+          f"{[list(s) for s in SHAPES]}")
+
+    # the call site makes no host sync, and launches H1 once
+    LAUNCHES.reset()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        matches = match_planes_multi(levels, targets, weights)
+    except RuntimeError as e:
+        raise SmokeFailure(f"match_planes_multi synchronises with the host: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if LAUNCHES["hungarian"] != 1 or not torch.equal(torch.cat(matches), got):
+        raise SmokeFailure(f"match_planes_multi: {LAUNCHES['hungarian']} H1 launches, or its "
+                           f"match differs from the kernel's")
+    print("[H1 hungarian] match_planes_multi under set_sync_debug_mode('error'): no host sync, "
+          "one H1 launch")
+
+    # the syncs left in one train step, by site
+    step = TrainStep(model, cfg, seed=0)
+    step(batch)  # warm-up
+    sites = {}
+
+    def fwd_bwd():
+        step.optimizer.zero_grad(set_to_none=True)
+        sites["result"] = step.forward_backward(batch)
+
+    fb = sync_sites(torch, fwd_bwd)
+    upd = sync_sites(torch, lambda: step.apply_gradients(
+        finite_total=torch.isfinite(sites["result"][1])))
+    print(f"[H1 hungarian] host syncs of one train forward and backward (f32, {TRAIN_PAIRS} "
+          f"pairs), by site: {fb or 'none'}; of the update that follows (apply_gradients): "
+          f"{upd or 'none'}")
+    del step, model
+    torch.cuda.empty_cache()
+
+    # times: the kernel, its plain version on the card, the host path it replaces
+    t = kernel_ms(torch, lambda: h1.hungarian_cuda(cost, num_gt), iters=50)
+    plain_ms = kernel_ms(torch, lambda: H.hungarian_plain(cost, num_gt), warm=1, iters=3)["ms"]
+    host_ms = kernel_ms(torch, lambda: H.hungarian_host(cost, num_gt), warm=1, iters=5)["ms"]
+    with torch.no_grad():  # the rest of the "matcher" span: the three levels' costs
+        costs = kernel_ms(torch, lambda: torch.cat(
+            [compute_match_cost(o, targets, weights) for o in levels]), iters=10)
+    n_bytes = cost.numel() * 4 + num_gt.numel() * 8 + p * nq * 8  # costs, num_gt, match
+    n_ops = int(steps.sum()) * nq * 4  # per Dijkstra step and column: 3 additions, a compare
+    bms, by = bound_ms(n_bytes, n_ops)
+    worst = int(torch.argmax(steps))
+    floor_ms, step_cycles, row_cycles = hungarian_floor_ms(int(steps[worst]),
+                                                           int(num_gt[worst]))
+    print(f"[H1 hungarian] kernel {t['ms']:.4f} ms (unqueued {t['unqueued_ms']:.4f}, host "
+          f"{t['host_us']:.1f} us per call); plain version on the card "
+          f"{plain_ms:.4f} ms; the host path it replaces (device-to-host copy, scipy per "
+          f"problem, the match back: hungarian_host) {host_ms:.4f} ms; the costs it solves "
+          f"(compute_match_cost of 3 levels) {costs['ms']:.4f} ms (unqueued "
+          f"{costs['unqueued_ms']:.4f}); bound {bms:.6f} ms ({by}: "
+          f"{n_bytes} B, {n_ops} operations); dependency floor estimate {floor_ms:.4f} ms "
+          f"(problem {worst}: {int(steps[worst])} Dijkstra steps x {step_cycles} cycles + "
+          f"{int(num_gt[worst])} rows x {row_cycles} cycles at assumed latencies, not "
+          f"measured); on {card}")
+    return {"name": "hungarian", "route": "cuda", "source": "nopesac_torch/ops/csrc/hungarian.cu",
+            "replaces": "nopesac_tpu/losses/hungarian.py:213", "max_abs_err": float(n_bad),
+            "ms": t["ms"], "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "unqueued_ms": t["unqueued_ms"], "host_us": t["host_us"],
+            "host_path_ms": host_ms, "costs_ms": costs["ms"],
+            "dijkstra_steps_max": int(steps.max()), "device_events_per_call": prof["per_call"],
+            "kernel_device_ms": prof["device_ms"]}
 
 
 def check_train_reference(torch, dev, opts=(), what="train reference 96x128", batches=None):
@@ -1404,7 +1642,7 @@ def run_trainer(torch, dev, card, step_ms):
         raise SmokeFailure(f"trainer: {missing} not written")
     n_eval = TRAINER_TEST_PAIRS // N_PAIRS
     want = launches_want(mask_loss_fwd=3 * TRAINER_STEPS, mask_loss_bwd=3 * TRAINER_STEPS,
-                         select_maps=n_eval, sinkhorn=n_eval)
+                         hungarian=TRAINER_STEPS, select_maps=n_eval, sinkhorn=n_eval)
     if counts != want:
         raise SmokeFailure(f"trainer launches {counts}, want {want}")
     times = trainer.loop_times
@@ -1640,8 +1878,8 @@ def run_scannet(torch, dev, card):
                        "MP3D .pkl -> ScanNet step 1")
     steps = SCANNET_STEPS[0]
     counts = scannet_train(torch, card, one, STEP2_LOSS_KEYS,
-                           launches_want(mask_loss_fwd=3 * steps, mask_loss_bwd=3 * steps),
-                           "ScanNet step 1")
+                           launches_want(mask_loss_fwd=3 * steps, mask_loss_bwd=3 * steps,
+                                         hungarian=steps), "ScanNet step 1")
     total = {k: total[k] + counts[k] for k in total}
     step1 = os.path.join(one.cfg.OUTPUT_DIR, "model_final.pth")
     del one, sd1
@@ -1657,7 +1895,8 @@ def run_scannet(torch, dev, card):
     check_weight_chain(torch, two, step1, sd1, new, [], "ScanNet step 1 -> step 2")
     counts = scannet_train(torch, card, two, TRAIN_LOSS_KEYS,
                            launches_want(mask_loss_fwd=3 * steps, mask_loss_bwd=3 * steps,
-                                         select_maps=n_eval, sinkhorn=n_eval), "ScanNet step 2")
+                                         hungarian=steps, select_maps=n_eval, sinkhorn=n_eval),
+                           "ScanNet step 2")
     total = {k: total[k] + counts[k] for k in total}
     step2 = os.path.join(two.cfg.OUTPUT_DIR, "model_final.pth")
     del two, sd1
@@ -1869,7 +2108,8 @@ def launch_ranks(torch, card, what, n, backend):
           f"rank {[round(x['peak'] / 2**30, 2) for x in ranks]} GiB, {reduce}; evaluation of "
           f"{RANK_PAIRS} pairs {lead['eval_stats']}; launch {wall:.1f} s (pairs made in "
           f"{[round(x['data_s'], 1) for x in ranks]} s); on {card}")
-    train_want = launches_want(mask_loss_fwd=3 * RANK_STEPS, mask_loss_bwd=3 * RANK_STEPS)
+    train_want = launches_want(mask_loss_fwd=3 * RANK_STEPS, mask_loss_bwd=3 * RANK_STEPS,
+                               hungarian=RANK_STEPS)
     n_eval = RANK_PAIRS // n // N_PAIRS
     eval_want = launches_want(select_maps=n_eval, sinkhorn=n_eval)
     for x in ranks:
@@ -3202,6 +3442,7 @@ def main(argv=None):
         name, card = phase_device(torch)
         phase_build()
         kernels = [check_select(torch, dev), check_sinkhorn(torch, dev)]
+        h1_events = hungarian_events(torch, dev)
         counts, model, batches, outs, _ = run_main_path(torch, dev, card)
         planar_out = run_planar_scene(torch, dev, model, batches[0], card)
         check_small_reference(torch, dev)
@@ -3217,7 +3458,9 @@ def main(argv=None):
         torch.cuda.empty_cache()
         kernels += check_mask_loss(torch, dev)
         train_counts, step_ms, step_peak, train_batches = run_train_path(torch, dev, card)
-        counts.update({k: v for k, v in train_counts.items() if k.startswith("mask_loss")})
+        counts.update({k: v for k, v in train_counts.items()
+                       if k.startswith("mask_loss") or k == "hungarian"})
+        kernels.append(check_hungarian(torch, dev, card, train_batches, h1_events))
         check_train_reference(torch, dev)
         bf16_train_counts = run_bf16_train_path(torch, dev, card, train_batches, step_ms,
                                                 step_peak)

@@ -15,16 +15,20 @@ timed passes of `--batches` batches each:
   1. without the profiler: the wall time per batch and, per stage, the span
      between CUDA events recorded around the stage on the stream (the
      device-side span, which includes the gaps while the host is still
-     launching the stage's kernels);
+     launching the stage's kernels), and the host's time inside the stage's
+     call;
   2. under torch.profiler: the summed device time of all kernels and the
      kernels that take the most of it. The busy share is pass 2's kernel
-     time over pass 1's wall time (the profiler slows the host down).
-In the train step the spans are the forward (with the host LSA matcher and
-the criterion inside it) and the optimizer update; the backward is the
-step's span less those two. With `--memory`, one more step runs under the
-caching allocator's history: the blocks live at its peak, summed by the
-innermost line of this package outside `models/layers.py` that allocated
-them (`memory_at_peak`).
+     time over pass 1's wall time (the profiler slows the host down). The
+     host's time in the runtime calls that wait for the device
+     (`WAIT_CALLS`), summed by call and by the innermost stage around each
+     (`host_waits`).
+In the train step the spans are the forward (with the matcher, kernel H1
+on the card, and the criterion inside it) and the optimizer update; the
+backward is the step's span less those two. With `--memory`, one more step
+runs under the caching allocator's history: the blocks live at its peak,
+summed by the innermost line of this package outside `models/layers.py`
+that allocated them (`memory_at_peak`).
 Needs a CUDA card. Prints one JSON object and, with `--out`, writes it
 there.
 """
@@ -47,11 +51,21 @@ from .train import TrainStep, build_train_model, synthetic_batches
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+SPAN = "stage:"  # the profiler ranges StageTimer opens, one per stage call
+# the CUDA runtime calls in which the host waits for the device: a stream,
+# event or device synchronisation, and a copy to or from pageable host memory
+# (which waits for the stream's earlier work)
+WAIT_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpy", "cudaMemcpyAsync")
+
+
 class StageTimer:
-    """Wraps bound methods so that each call records a CUDA event pair."""
+    """Wraps bound methods so that each call records a CUDA event pair, the
+    host's time inside it, and a profiler range named SPAN + stage."""
 
     def __init__(self):
         self.events = defaultdict(list)
+        self.host_s = defaultdict(float)
 
     def wrap(self, obj, attr: str, name: str):
         fn = getattr(obj, attr)
@@ -59,9 +73,12 @@ class StageTimer:
         def timed(*args, **kwargs):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
             start.record()
-            out = fn(*args, **kwargs)
+            with torch.profiler.record_function(SPAN + name):
+                out = fn(*args, **kwargs)
             end.record()
+            self.host_s[name] += time.perf_counter() - t0
             self.events[name].append((start, end))
             return out
 
@@ -119,6 +136,31 @@ def _site(frames):
                                                             "models/layers.py")):
             return f"{path.split('/nopesac_torch/')[-1]}:{f['line']} {f['name']}"
     return "outside nopesac_torch"
+
+
+def host_waits(events, n_batches: int, names=WAIT_CALLS, top: int = 15) -> dict:
+    """The host's time in the calls `names` of a profile's events, ms per
+    batch: in all, by call and by the innermost StageTimer stage around each
+    ("none" outside every stage)."""
+    sums = {k: defaultdict(lambda: [0.0, 0]) for k in ("by_call", "by_stage")}
+    for evt in events:
+        if evt.name not in names:
+            continue
+        stage, up = "none", evt.cpu_parent
+        while up is not None:
+            if up.name.startswith(SPAN):
+                stage = up.name[len(SPAN):]
+                break
+            up = up.cpu_parent
+        for key, k in (("by_call", evt.name), ("by_stage", stage)):
+            sums[key][k][0] += evt.cpu_time_total / 1e3 / n_batches
+            sums[key][k][1] += 1 / n_batches
+    out = {"ms_per_batch": sum(v[0] for v in sums["by_call"].values()),
+           "calls_per_batch": sum(v[1] for v in sums["by_call"].values())}
+    for key, d in sums.items():
+        rows = sorted(d.items(), key=lambda kv: -kv[1][0])[:top]
+        out[key] = [{"at": k, "ms": v[0], "calls": v[1]} for k, v in rows]
+    return out
 
 
 def memory_at_peak(step, batch, top: int = 20) -> dict:
@@ -212,6 +254,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     stages = {k: v / args.batches for k, v in timer.ms().items()}
+    stage_host = {k: v / args.batches * 1e3 for k, v in timer.host_s.items()}
     if args.train:
         stages["step"] = sum(s.elapsed_time(e) for s, e in totals) / args.batches
         stages["backward"] = stages["step"] - stages["forward"] - stages["optimizer"]
@@ -222,9 +265,11 @@ def main(argv=None) -> int:
         for batch in batches[1:]:
             step(batch)
         torch.cuda.synchronize()
-    kernels = []  # device-side events only (kernels, memcpy, memset)
+    # device-side events only (kernels, memcpy, memset); the stage ranges show
+    # on the device's timeline too, as annotations that span other events
+    kernels = []
     for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.key.startswith(SPAN):
             kernels.append((evt.key, evt.self_device_time_total / 1e3 / args.batches,
                             evt.count / args.batches))
     kernels.sort(key=lambda k: -k[1])
@@ -242,8 +287,10 @@ def main(argv=None) -> int:
         "kernel_ms_per_batch": busy_ms, "busy_share": busy_ms / wall_ms,
         "kernel_launches_per_batch": sum(k[2] for k in kernels),
         "stage_span_ms_per_batch": stages,
+        "stage_host_ms_per_batch": stage_host,
         "top_kernels": [{"name": n[:120], "ms_per_batch": ms, "calls_per_batch": c}
                         for n, ms, c in kernels[:15]],
+        "host_waits": host_waits(prof.events(), args.batches),
     }
     if args.memory:
         result["memory_at_peak"] = memory_at_peak(step, batches[1])

@@ -96,12 +96,13 @@ def compute_match_cost(outputs: Dict, targets: Dict, weights: Dict) -> torch.Ten
 
 
 def match_planes_multi(outputs_list: List[Dict], targets: Dict, weights: Dict) -> List[torch.Tensor]:
-    """Hungarian matches [B, NQ] of several supervision levels, with one
-    device-to-host copy of all their costs and one host solve."""
+    """Hungarian matches [B, NQ] of several supervision levels, all their
+    costs solved by one `hungarian` call on the costs' device (kernel H1 on
+    the card): the match never leaves the device."""
     with torch.no_grad():
         cost = torch.cat([compute_match_cost(o, targets, weights) for o in outputs_list])
-    num_gt = targets["gt_valid"].to(torch.int64).sum(dim=-1).repeat(len(outputs_list))
-    return list(torch.chunk(hungarian(cost, num_gt), len(outputs_list)))
+        num_gt = targets["gt_valid"].to(torch.int64).sum(dim=-1).repeat(len(outputs_list))
+        return list(torch.chunk(hungarian(cost, num_gt), len(outputs_list)))
 
 
 def mask_focal_dice(src, gt_masks, tgt_idx, matched):

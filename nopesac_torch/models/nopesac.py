@@ -195,7 +195,7 @@ class PlaneTRNopeSAC(nn.Module):
         targets = {k: torch.cat([t0[k], t1[k]]) for k in t0}
         feats, out, qf = self.detect(images, gen)
 
-        # one host solve for the final and every aux supervision level
+        # one solve on the device for the final and every aux supervision level
         aux_list = list(out["aux_outputs"]) if st.loss_detection_on else []
         matches = match_planes_multi([out] + aux_list, targets, st.match_cost_weights())
         match = matches[0]

@@ -76,5 +76,5 @@ def refuse_autograd(kernel: str, *tensors: torch.Tensor) -> None:
 # the kernels of the port; each `ops/` wrapper bumps its own name (B3 counts
 # its bf16-logit variant under a name of its own)
 KERNEL_NAMES = ("select_maps", "sinkhorn", "mask_loss_fwd", "mask_loss_bwd", "mask_loss_fwd_bf16",
-                "mask_loss_bwd_bf16", "bottleneck_tail")
+                "mask_loss_bwd_bf16", "bottleneck_tail", "hungarian")
 LAUNCHES = LaunchCounters(KERNEL_NAMES)

@@ -12,8 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+from nopesac_torch.losses.hungarian import hungarian, hungarian_plain
+from nopesac_torch.losses.hungarian_cases import FAMILIES, SHAPES, cost_family
 from nopesac_torch.models.resnet import ResNet
 from nopesac_torch.ops import bottleneck, mask_loss, select, sinkhorn
+from nopesac_torch.ops.hungarian import hungarian_cuda
 from nopesac_torch.utils.device import LAUNCHES
 
 pytestmark = pytest.mark.gpu
@@ -456,3 +459,37 @@ def test_fused_backbone_matches_unfused_on_card(cuda):
     assert LAUNCHES["bottleneck_tail"] == before + 24  # two per identity block
     for name, r in ref.items():
         assert float((got[name] - r).abs().max()) <= 1e-4 * float(r.abs().max()), name
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("p,n", SHAPES)
+@pytest.mark.parametrize("family", FAMILIES)
+def test_hungarian_kernel_equals_plain(cuda, family, p, n, seed):
+    """H1 bit-equal to its plain version (run on the CPU) on every cost
+    family, ties and non-finite costs included: one launch per call, two
+    runs bit-equal."""
+    cost, num_gt, _ = cost_family(family, p, n, seed)
+    c, k = torch.from_numpy(cost).to(cuda), torch.from_numpy(num_gt).to(cuda)
+    before = LAUNCHES["hungarian"]
+    got = hungarian_cuda(c, k)
+    assert LAUNCHES["hungarian"] == before + 1
+    again = hungarian_cuda(c, k)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int64 and tuple(got.shape) == (p, n)
+    assert torch.equal(got.cpu(), hungarian_plain(torch.from_numpy(cost),
+                                                  torch.from_numpy(num_gt)))
+    assert torch.equal(got, again)
+
+
+def test_hungarian_on_card_takes_the_kernel_and_clamps_num_gt(cuda):
+    cost, num_gt, _ = cost_family("layout", 8, 50, seed=5)
+    ng = cost.shape[2]
+    num_gt[1], num_gt[2] = ng + 9, -4
+    before = LAUNCHES["hungarian"]
+    got = hungarian(torch.from_numpy(cost).to(cuda), torch.from_numpy(num_gt).to(cuda))
+    assert LAUNCHES["hungarian"] == before + 1
+    ref = hungarian_plain(torch.from_numpy(cost), torch.from_numpy(np.clip(num_gt, 0, ng)))
+    assert torch.equal(got.cpu(), ref)
+    empty = hungarian_cuda(torch.zeros((0, 50, 50), device=cuda),
+                           torch.zeros(0, dtype=torch.int64, device=cuda))
+    assert tuple(empty.shape) == (0, 50) and LAUNCHES["hungarian"] == before + 1
