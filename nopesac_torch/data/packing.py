@@ -17,6 +17,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..utils import trace
 from ..utils.device import DeviceLike
 
 
@@ -56,14 +57,19 @@ def unpack_targets(t: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 def batch_to_device(batch: Dict, device: DeviceLike) -> Dict:
     """A collated numpy batch as tensors on `device` (the meta list is
-    dropped); targets stay in the wire format."""
-    out = {}
-    for key, v in batch.items():
-        if key == "meta":
-            continue
-        if isinstance(v, dict):
-            out[key] = {k: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                        for k, a in v.items()}
-        else:
-            out[key] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
-    return out
+    dropped); targets stay in the wire format. Counts its copies and their
+    bytes (`data.h2d_copies`, `data.h2d_bytes`) while the recorder is on."""
+
+    def to(a):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        trace.count("data.h2d_copies")
+        trace.count("data.h2d_bytes", t.numel() * t.element_size())
+        return t.to(device)
+
+    with trace.span("data.batch_to_device"):
+        out = {}
+        for key, v in batch.items():
+            if key == "meta":
+                continue
+            out[key] = {k: to(a) for k, a in v.items()} if isinstance(v, dict) else to(v)
+        return out

@@ -1,126 +1,129 @@
-"""Where the eval step's or the train step's time goes on the card.
+"""Where the eval step's, the evaluation entry point's or the train step's
+time goes on the card, by the program's own spans (`utils/trace.py`).
 
     python -m nopesac_torch.engine.profile [--config-file configs/inference_mp3d.yaml]
         [--batches 5] [--fuse-tail] [--out FILE]
+    python -m nopesac_torch.engine.profile --entry [--config-file configs/inference_mp3d.yaml]
+        [--batches 32] [--out FILE] [KEY VALUE ...]
     python -m nopesac_torch.engine.profile --train [--config-file configs/train_mp3d_step3.yaml]
         [--batches 3] [--memory] [--out FILE] [KEY VALUE ...]
 
 The eval step: builds the inference model with seeded random weights (with
 `--fuse-tail`, its backbone runs the identity-block tails through kernel B4),
-runs a warm-up batch of TEST.IMS_PER_BATCH synthetic uint8 pairs. The train step
-(`--train`, f32 and MODEL.REMAT off unless the KEY VALUE overrides say
-otherwise): builds the train model and TrainStep, runs a warm-up step
-on SOLVER.IMS_PER_BATCH synthetic pairs of 12 planes per view. Then two
-timed passes of `--batches` batches each:
-  1. without the profiler: the wall time per batch and, per stage, the span
-     between CUDA events recorded around the stage on the stream (the
-     device-side span, which includes the gaps while the host is still
-     launching the stage's kernels), and the host's time inside the stage's
-     call;
-  2. under torch.profiler: the summed device time of all kernels and the
-     kernels that take the most of it. The busy share is pass 2's kernel
-     time over pass 1's wall time (the profiler slows the host down). The
-     host's time in the runtime calls that wait for the device
-     (`WAIT_CALLS`), summed by call and by the innermost stage around each
-     (`host_waits`).
-In the train step the spans are the forward (with the matcher, kernel H1
-on the card, and the criterion inside it) and the optimizer update; the
-backward is the step's span less those two. With `--memory`, one more step
-runs under the caching allocator's history: the blocks live at its peak,
-summed by the innermost line of this package outside `models/layers.py`
-that allocated them (`memory_at_peak`).
+runs a warm-up batch of TEST.IMS_PER_BATCH synthetic uint8 pairs, each batch
+inside the span `eval.step`. The entry point (`--entry`): `EvalRunner.test`
+as `--eval-only` runs it (mapper, eval step, one-deep pipeline, fetch,
+postprocess, evaluator, `evaluate()`, each in its `eval.*` span) on a
+warm-up split of 2 batches, then on one split of `--batches` batches, of
+seeded synthetic pairs of 12 planes per view. The train step (`--train`, f32
+and MODEL.REMAT off unless the KEY VALUE overrides say otherwise): builds the
+train model and TrainStep; each step copies a host batch of
+SOLVER.IMS_PER_BATCH synthetic pairs of 12 planes per view to the card
+through `batch_to_device`, as `Trainer.train` does, then steps; one warm-up
+step. Then three passes of `--batches` batches each:
+  0. with tracing off: the wall per batch (`untraced_wall_ms_per_batch`);
+  1. with the span recorder on and no profiler: the wall per batch and each
+     span's host time per batch, in all and less its child spans'
+     (`stage_host_ms_per_batch`, `stage_self_ms_per_batch`), and the
+     counters per batch (`counts_per_batch`: the batch copy's bytes and
+     copies);
+  2. under torch.profiler, where each span is a `nopesac:` range: the
+     device time of the operations launched inside each range (a host call
+     that starts inside it shares its id with the device operation it
+     launched), the device's idle time by the innermost range at each idle
+     gap's midpoint ("none" outside every range), the busy share (the union
+     of the device's operations over this pass's own wall), the operations
+     that take the most device time, and the host's time in the runtime
+     calls that wait for the device (`WAIT_CALLS`), by call and by the
+     innermost range at their start (`host_waits`). Ranges and calls are
+     matched by time, so the autograd thread's launches and waits fall in
+     the main thread's `train.backward`.
+With `--entry`, `eval_stats` is the profiled split's `last_eval_stats` (its
+rate, valid planes per view, matches per pair).
+With `--memory`, one more step runs under the caching allocator's history:
+the blocks live at its peak, summed by the innermost line of this package
+outside `models/layers.py` that allocated them (`memory_at_peak`).
 Needs a CUDA card. Prints one JSON object and, with `--out`, writes it
 there.
 """
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import os
 import subprocess
 import time
 from collections import defaultdict
+from typing import Dict, List, Tuple
 
 import torch
 
 from ..config.config import get_cfg
-from ..models import nopesac as nopesac_module
+from ..data.packing import batch_to_device
+from ..data.synthetic import make_dataset
+from ..utils import trace
+from ..utils.device import resolve_device
 from .predict import build_model_from_cfg, make_eval_step, synthetic_pairs
-from .train import TrainStep, build_train_model, synthetic_batches
+from .test import EvalRunner
+from .train import TrainStep, build_train_model, synthetic_host_batches
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-SPAN = "stage:"  # the profiler ranges StageTimer opens, one per stage call
+SPAN = trace.PREFIX  # the profiler ranges of the program's spans
 # the CUDA runtime calls in which the host waits for the device: a stream,
 # event or device synchronisation, and a copy to or from pageable host memory
 # (which waits for the stream's earlier work)
 WAIT_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
               "cudaMemcpy", "cudaMemcpyAsync")
+OUTSIDE = "none"
 
 
-class StageTimer:
-    """Wraps bound methods so that each call records a CUDA event pair, the
-    host's time inside it, and a profiler range named SPAN + stage."""
-
-    def __init__(self):
-        self.events = defaultdict(list)
-        self.host_s = defaultdict(float)
-
-    def wrap(self, obj, attr: str, name: str):
-        fn = getattr(obj, attr)
-
-        def timed(*args, **kwargs):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            start.record()
-            with torch.profiler.record_function(SPAN + name):
-                out = fn(*args, **kwargs)
-            end.record()
-            self.host_s[name] += time.perf_counter() - t0
-            self.events[name].append((start, end))
-            return out
-
-        setattr(obj, attr, timed)
-
-    def ms(self):
-        return {k: sum(s.elapsed_time(e) for s, e in v) for k, v in self.events.items()}
-
-
-def _eval_setup(cfg, n_batches, fuse_tail=False):
+def _eval_setup(cfg, n_batches, device=None, fuse_tail=False):
     h, w = cfg.INPUT.IMAGE_SIZE
     bs = cfg.TEST.IMS_PER_BATCH
-    model = build_model_from_cfg(cfg, seed=0, fuse_tail=fuse_tail)
-    step = make_eval_step(model, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
-    batches = [synthetic_pairs(bs, h, w, seed=s) for s in range(n_batches + 1)]
-    head = model.camera_head
-    spans = ((model.backbone, "forward", "backbone"),
-             (model.sem_seg_head, "forward", "plane_head"),
-             (model, "select_planes", "select_planes"),
-             (head, "pixel_camera", "pixel_camera"),
-             (model.matching_head.gnn, "forward", "matching_gnn"),
-             (model.matching_head, "forward", "matching_head"),
-             (head, "refine", "refine"),
-             (model, "inference", "total"))
-    return bs, lambda b: step(*b), batches, spans
+    model = build_model_from_cfg(cfg, device=device, seed=0, fuse_tail=fuse_tail)
+    eval_step = make_eval_step(model, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
+    batches = [synthetic_pairs(bs, h, w, seed=s, device=device) for s in range(n_batches + 1)]
+
+    def step(batch):
+        with trace.span("eval.step"):
+            return eval_step(*batch)
+
+    return bs, step, batches
 
 
-def _train_setup(cfg, n_batches):
-    model = build_train_model(cfg, seed=0)
-    step = TrainStep(model, cfg, seed=0)
-    batches = list(synthetic_batches(cfg, n_batches + 1, seed=1, n_planes=12))
-    head = model.camera_head
-    spans = ((model.backbone, "forward", "backbone"),
-             (model.sem_seg_head, "forward", "plane_head"),
-             (nopesac_module, "match_planes_multi", "matcher"),
-             (nopesac_module, "detection_losses_siamese", "criterion"),
-             (model.matching_head, "forward", "matching_head"),
-             (head, "pixel_camera", "pixel_camera"),
-             (head, "refine", "refine"),
-             (model, "train_forward", "forward"),
-             (step, "apply_gradients", "optimizer"))
-    return cfg.SOLVER.IMS_PER_BATCH, step, batches, spans
+def _entry_setup(cfg, n_batches, device=None):
+    h, w = cfg.INPUT.IMAGE_SIZE
+    bs = int(cfg.TEST.IMS_PER_BATCH)
+    runner = EvalRunner(cfg, build_model_from_cfg(cfg, device=device, seed=0))
+    splits = [make_dataset(n * bs, n_planes=12, seed=s, h=h, w=w)
+              for s, n in enumerate((2, n_batches))]
+    return bs, runner.test, splits
+
+
+def _train_setup(cfg, n_batches, device=None):
+    dev = resolve_device(device)
+    train_step = TrainStep(build_train_model(cfg, device=dev, seed=0), cfg, seed=0)
+
+    def step(batch):
+        return train_step(batch_to_device(batch, dev))
+
+    batches = list(synthetic_host_batches(cfg, n_batches + 1, seed=1, n_planes=12))
+    return cfg.SOLVER.IMS_PER_BATCH, step, batches
+
+
+SETUPS = {"eval": _eval_setup, "entry": _entry_setup, "train": _train_setup}
+
+
+def _pass(step, work) -> float:
+    """Seconds to run `step` over `work` and the work it queued on the card."""
+    t0 = time.perf_counter()
+    for batch in work:
+        step(batch)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
 
 
 def _site(frames):
@@ -138,22 +141,55 @@ def _site(frames):
     return "outside nopesac_torch"
 
 
+def _is_device(evt) -> bool:
+    """A device operation (kernel, copy, set), not a range's annotation on
+    the device's timeline."""
+    return (evt.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(evt, "is_user_annotation", False)
+            and not evt.name.startswith(SPAN))
+
+
+def _union(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
+    out: List[List[float]] = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return [(s, e) for s, e in out]
+
+
+def _innermost(points: List[float], ranges: List[Tuple[float, float, str]]) -> List[str]:
+    """For each point (ascending), the name of the latest-starting range
+    that holds it, or OUTSIDE."""
+    ranges = sorted(ranges)
+    names, active, k = [], [], 0
+    for t in points:
+        while k < len(ranges) and ranges[k][0] <= t:
+            active.append(ranges[k])
+            k += 1
+        active = [r for r in active if r[1] >= t]
+        names.append(active[-1][2] if active else OUTSIDE)
+    return names
+
+
+def _ranges(events) -> List[Tuple[float, float, str]]:
+    """The program's spans in a profile: (start, end, name) in us."""
+    return [(e.time_range.start, e.time_range.end, e.name[len(SPAN):]) for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith(SPAN)]
+
+
 def host_waits(events, n_batches: int, names=WAIT_CALLS, top: int = 15) -> dict:
     """The host's time in the calls `names` of a profile's events, ms per
-    batch: in all, by call and by the innermost StageTimer stage around each
-    ("none" outside every stage)."""
+    batch: in all, by call and by the innermost program span at each call's
+    start, on any thread (OUTSIDE where none is open)."""
+    calls = sorted((e.time_range.start, e.name, e.cpu_time_total) for e in events
+                   if e.name in names and e.device_type == torch.autograd.DeviceType.CPU)
+    stages = _innermost([t for t, _, _ in calls], _ranges(events))
     sums = {k: defaultdict(lambda: [0.0, 0]) for k in ("by_call", "by_stage")}
-    for evt in events:
-        if evt.name not in names:
-            continue
-        stage, up = "none", evt.cpu_parent
-        while up is not None:
-            if up.name.startswith(SPAN):
-                stage = up.name[len(SPAN):]
-                break
-            up = up.cpu_parent
-        for key, k in (("by_call", evt.name), ("by_stage", stage)):
-            sums[key][k][0] += evt.cpu_time_total / 1e3 / n_batches
+    for (_, name, us), stage in zip(calls, stages):
+        for key, k in (("by_call", name), ("by_stage", stage)):
+            sums[key][k][0] += us / 1e3 / n_batches
             sums[key][k][1] += 1 / n_batches
     out = {"ms_per_batch": sum(v[0] for v in sums["by_call"].values()),
            "calls_per_batch": sum(v[1] for v in sums["by_call"].values())}
@@ -161,6 +197,51 @@ def host_waits(events, n_batches: int, names=WAIT_CALLS, top: int = 15) -> dict:
         rows = sorted(d.items(), key=lambda kv: -kv[1][0])[:top]
         out[key] = [{"at": k, "ms": v[0], "calls": v[1]} for k, v in rows]
     return out
+
+
+def device_by_stage(events, n_batches: int, top: int = 15) -> Dict:
+    """A profile's device side, ms per batch: busy (the union of the
+    device's operations), each span's device time (the operations launched
+    inside it, its child spans' included) and the idle gaps by the innermost
+    span at their midpoints (the gaps add up to the profile's span less
+    busy), and the operations that take the most time."""
+    device, host = [], []
+    for e in events:
+        if _is_device(e):
+            device.append((e.time_range.start, e.time_range.end, e.id,
+                           getattr(e, "linked_correlation_id", 0) or 0, e.name))
+        elif e.device_type == torch.autograd.DeviceType.CPU and not e.name.startswith(SPAN):
+            host.append((e.time_range.start, e.id))
+    ranges = _ranges(events)
+    host.sort()
+    starts = [t for t, _ in host]
+    ids: Dict[str, set] = defaultdict(set)
+    for s, e, name in ranges:
+        ids[name].update(i for _, i in host[bisect.bisect_left(starts, s):
+                                            bisect.bisect_right(starts, e)])
+    per = lambda us: us / 1e3 / n_batches
+    stage = {name: per(sum(e - s for s, e, i, li, _ in device if i in got or (li and li in got)))
+             for name, got in ids.items()}
+    busy = _union([(s, e) for s, e, *_ in device])
+    # the idle gaps between the device's operations, and before the first and
+    # after the last within the profile's first and last events
+    lo = min(e.time_range.start for e in events)
+    hi = max(e.time_range.end for e in events)
+    edges = [lo] + [t for iv in busy for t in iv] + [hi]
+    gaps = [(edges[k], edges[k + 1]) for k in range(0, len(edges), 2) if edges[k + 1] > edges[k]]
+    idle = defaultdict(float)
+    for (a, b), name in zip(gaps, _innermost([(a + b) / 2 for a, b in gaps], ranges)):
+        idle[name] += per(b - a)
+    ops = defaultdict(lambda: [0.0, 0])
+    for s, e, *_, name in device:
+        ops[name[:120]][0] += per(e - s)
+        ops[name[:120]][1] += 1 / n_batches
+    desc = lambda d: dict(sorted(d.items(), key=lambda kv: -kv[1]))
+    return {"busy_ms_per_batch": per(sum(e - s for s, e in busy)),
+            "ops_per_batch": len(device) / n_batches,
+            "stage_device_ms_per_batch": desc(stage), "idle_ms_per_batch": desc(idle),
+            "top_ops": [{"name": k, "ms_per_batch": v[0], "calls_per_batch": v[1]}
+                        for k, v in sorted(ops.items(), key=lambda kv: -kv[1][0])[:top]]}
 
 
 def memory_at_peak(step, batch, top: int = 20) -> dict:
@@ -212,7 +293,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config-file", default=None,
                     help="default: configs/inference_mp3d.yaml, or train_mp3d_step3.yaml")
-    ap.add_argument("--train", action="store_true", help="profile the train step")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--train", action="store_true", help="profile the train step")
+    mode.add_argument("--entry", action="store_true",
+                      help="profile EvalRunner.test on one split of --batches batches")
     ap.add_argument("--batches", type=int, default=5)
     ap.add_argument("--fuse-tail", action="store_true", help="eval step with kernel B4")
     ap.add_argument("--memory", action="store_true",
@@ -232,66 +316,49 @@ def main(argv=None) -> int:
     if args.opts:
         cfg.merge_from_list(args.opts)
     h, w = cfg.INPUT.IMAGE_SIZE
-    if args.train:
-        bs, step, batches, spans = _train_setup(cfg, args.batches)
-    else:
-        bs, step, batches, spans = _eval_setup(cfg, args.batches, args.fuse_tail)
+    kind = "train" if args.train else "entry" if args.entry else "eval"
+    extra = {"fuse_tail": args.fuse_tail} if kind == "eval" else {}
+    bs, step, batches = SETUPS[kind](cfg, args.batches, **extra)
     step(batches[0])  # warm-up
-    torch.cuda.synchronize()
+    untraced = _pass(step, batches[1:])
 
-    timer = StageTimer()
-    for obj, attr, name in spans:
-        timer.wrap(obj, attr, name)
     torch.cuda.reset_peak_memory_stats()
-    totals = []
-    t0 = time.perf_counter()
-    for batch in batches[1:]:
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        step(batch)
-        end.record()
-        totals.append((start, end))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    stages = {k: v / args.batches for k, v in timer.ms().items()}
-    stage_host = {k: v / args.batches * 1e3 for k, v in timer.host_s.items()}
-    if args.train:
-        stages["step"] = sum(s.elapsed_time(e) for s, e in totals) / args.batches
-        stages["backward"] = stages["step"] - stages["forward"] - stages["optimizer"]
+    trace.reset()
+    trace.enable()
+    try:
+        wall = _pass(step, batches[1:])
+    finally:
+        trace.disable()
+    snap = trace.snapshot()
+    stages = trace.by_name(snap)
     peak = torch.cuda.max_memory_allocated()
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        for batch in batches[1:]:
-            step(batch)
-        torch.cuda.synchronize()
-    # device-side events only (kernels, memcpy, memset); the stage ranges show
-    # on the device's timeline too, as annotations that span other events
-    kernels = []
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.key.startswith(SPAN):
-            kernels.append((evt.key, evt.self_device_time_total / 1e3 / args.batches,
-                            evt.count / args.batches))
-    kernels.sort(key=lambda k: -k[1])
-    busy_ms = sum(k[1] for k in kernels)
+        prof_wall = _pass(step, batches[1:])
+    events = prof.events()
+    dev = device_by_stage(events, args.batches)
     wall_ms = wall / args.batches * 1e3
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     result = {
         "device": torch.cuda.get_device_name(0), "card": smi.stdout.strip().splitlines()[0],
-        "step": "train" if args.train else "eval", "fuse_tail": args.fuse_tail,
+        "step": kind, "fuse_tail": args.fuse_tail,
         "pairs_per_batch": bs, "image": [h, w],
         "sinkhorn_iters": cfg.MODEL.MATCHING_HEAD.SINKHORN_ITERS,
         "peak_memory_gib": peak / 2**30,
+        "untraced_wall_ms_per_batch": untraced / args.batches * 1e3,
         "wall_ms_per_batch": wall_ms, "pairs_per_s": bs / wall_ms * 1e3,
-        "kernel_ms_per_batch": busy_ms, "busy_share": busy_ms / wall_ms,
-        "kernel_launches_per_batch": sum(k[2] for k in kernels),
-        "stage_span_ms_per_batch": stages,
-        "stage_host_ms_per_batch": stage_host,
-        "top_kernels": [{"name": n[:120], "ms_per_batch": ms, "calls_per_batch": c}
-                        for n, ms, c in kernels[:15]],
-        "host_waits": host_waits(prof.events(), args.batches),
+        "stage_host_ms_per_batch": {k: v["host_ms"] / args.batches for k, v in stages.items()},
+        "stage_self_ms_per_batch": {k: v["self_ms"] / args.batches for k, v in stages.items()},
+        "counts_per_batch": {k: v / args.batches for k, v in snap["counts"].items()},
+        "profiled_wall_ms_per_batch": prof_wall / args.batches * 1e3,
+        "busy_share": dev["busy_ms_per_batch"] / (prof_wall / args.batches * 1e3),
+        **dev,
+        "host_waits": host_waits(events, args.batches),
     }
+    if kind == "entry":  # the profiled split's rate, planes per view and matches per pair
+        result["eval_stats"] = step.__self__.last_eval_stats
     if args.memory:
         result["memory_at_peak"] = memory_at_peak(step, batches[1])
     line = json.dumps(result)

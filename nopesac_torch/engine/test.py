@@ -58,6 +58,7 @@ from ..evaluation.evaluator import MP3DEvaluator
 from ..evaluation.postprocess import postprocess_batch
 from ..models.nopesac import PlaneTRNopeSAC
 from ..parallel.dist import barrier, is_main_process, launch, rank, world_size
+from ..utils import trace
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.np_geometry import rotmat_from_euler_deg
 from .checkpoint import Checkpointer, load_weights
@@ -177,7 +178,12 @@ class EvalRunner:
         Across ranks each rank runs the pairs dataset_list[rank::world] and
         the evaluator gathers them; every rank returns the metrics of all
         pairs, and `last_eval_stats` counts all pairs over rank 0's wall up
-        to the moment every rank is done."""
+        to the moment every rank is done, with this rank's valid planes per
+        view and final matches per pair."""
+        with trace.span("eval.test"):
+            return self._test(dataset_list)
+
+    def _test(self, dataset_list: Optional[List[dict]]) -> "OrderedDict":
         cfg = self.cfg
         test_name = cfg.DATASETS.TEST[0]
         if dataset_list is None:
@@ -206,12 +212,27 @@ class EvalRunner:
         dev = next(self.model.parameters()).device
         bs = int(cfg.TEST.IMS_PER_BATCH)
         debug_camera = bool(cfg.DEBUG_CAMERA_ON)
+        # valid planes of both views and final matches over this rank's
+        # pairs, counted on the host arrays the drain already holds
+        counted = {"pairs": 0, "planes": 0, "matches": 0}
 
         def drain(pending):
             chunk, metas, out, done = pending
-            if done is not None:
-                done.synchronize()
-            evaluator.process(chunk, postprocess_batch(_numpy(out), metas, height=h, width=w))
+            with trace.span("eval.drain"):
+                if done is not None:
+                    with trace.span("eval.fetch_wait"):
+                        done.synchronize()
+                with trace.span("eval.postprocess"):
+                    out = _numpy(out)
+                    n = len(metas)
+                    counted["pairs"] += n
+                    counted["planes"] += int(out["view0"]["valid"][:n].sum()
+                                             + out["view1"]["valid"][:n].sum())
+                    if "assignment" in out:
+                        counted["matches"] += int(out["assignment"][:n].sum())
+                    results = postprocess_batch(out, metas, height=h, width=w)
+                with trace.span("eval.evaluator"):
+                    evaluator.process(chunk, results)
 
         # one-step pipeline: batch i+1 is enqueued on the card before batch i
         # is fetched and postprocessed on the host
@@ -220,28 +241,31 @@ class EvalRunner:
         for k, lo in enumerate(range(0, len(dataset_list), bs)):
             if debug_camera:
                 print("**********************> ", k + 1, flush=True)
-            chunk = dataset_list[lo: lo + bs]
-            samples = [mapper(d) for d in chunk]
-            n_real = len(samples)
-            # the tail batch repeats its last sample so the eval step sees one
-            # shape; the repeats are dropped before the postprocess
-            samples += [samples[-1]] * (bs - n_real)
-            images = [torch.from_numpy(np.stack([s[f"image{i}"] for s in samples]))
-                      for i in ("0", "1")]
-            pad_chunk = list(chunk) + [chunk[-1]] * (bs - n_real)
-            gt_geo = init_cam = None
-            if gt_matcher:
-                gt_geo = gt_geo_from_samples(
-                    pad_chunk, samples, nq, noise_rng=noise_rng,
-                    scale_offset=cfg.TEST.POSE_REFINEMENT_WITH_GT_NOISE_MATCHERS_OFFSET_SCALE,
-                    scale_normal_deg=cfg.TEST.POSE_REFINEMENT_WITH_GT_NOISE_MATCHERS_NORMAL_SCALE)
-            if sp_topcam is not None:
-                init_cam = sp_topcam_of(sp_topcam, pad_chunk)
-            out = _fetch(eval_step(*images, gt_geo=gt_geo, init_cam=init_cam))
-            done = None
-            if dev.type == "cuda":
-                done = torch.cuda.Event()
-                done.record()
+            with trace.span("eval.mapper"):
+                chunk = dataset_list[lo: lo + bs]
+                samples = [mapper(d) for d in chunk]
+                n_real = len(samples)
+                # the tail batch repeats its last sample so the eval step sees
+                # one shape; the repeats are dropped before the postprocess
+                samples += [samples[-1]] * (bs - n_real)
+                images = [torch.from_numpy(np.stack([s[f"image{i}"] for s in samples]))
+                          for i in ("0", "1")]
+                pad_chunk = list(chunk) + [chunk[-1]] * (bs - n_real)
+                gt_geo = init_cam = None
+                if gt_matcher:
+                    tc = cfg.TEST
+                    gt_geo = gt_geo_from_samples(
+                        pad_chunk, samples, nq, noise_rng=noise_rng,
+                        scale_offset=tc.POSE_REFINEMENT_WITH_GT_NOISE_MATCHERS_OFFSET_SCALE,
+                        scale_normal_deg=tc.POSE_REFINEMENT_WITH_GT_NOISE_MATCHERS_NORMAL_SCALE)
+                if sp_topcam is not None:
+                    init_cam = sp_topcam_of(sp_topcam, pad_chunk)
+            with trace.span("eval.step"):
+                out = _fetch(eval_step(*images, gt_geo=gt_geo, init_cam=init_cam))
+                done = None
+                if dev.type == "cuda":
+                    done = torch.cuda.Event()
+                    done.record()
             if pending is not None:
                 drain(pending)
             pending = (chunk, [s["meta"] for s in samples[:n_real]], out, done)
@@ -249,9 +273,13 @@ class EvalRunner:
             drain(pending)
         barrier()
         secs = time.perf_counter() - t0
+        per = lambda k, d: round(counted[k] / max(d, 1), 3)
         self.last_eval_stats = {"pairs": n_pairs, "seconds": round(secs, 3),
-                                "pairs_per_sec": round(n_pairs / max(secs, 1e-9), 2)}
-        return evaluator.evaluate()
+                                "pairs_per_sec": round(n_pairs / max(secs, 1e-9), 2),
+                                "planes_per_view": per("planes", 2 * counted["pairs"]),
+                                "matches_per_pair": per("matches", counted["pairs"])}
+        with trace.span("eval.evaluate"):
+            return evaluator.evaluate()
 
 
 def default_argument_parser() -> argparse.ArgumentParser:

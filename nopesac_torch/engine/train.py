@@ -32,6 +32,7 @@ from ..models.layers import BatchNorm2d
 from ..models.nopesac import PlaneTRNopeSAC
 from ..parallel.dist import all_reduce_sum, rank, world_size
 from ..parallel.host_gather import all_gather_objects
+from ..utils import trace
 from ..utils.device import DeviceLike, resolve_device
 from .optimizer import apply_freeze, build_optimizer, clip_by_global_norm_, make_lr_schedule, set_lr
 from .predict import build_model_from_cfg
@@ -108,20 +109,21 @@ class TrainStep:
                            else state["generator"])
 
     def __call__(self, batch: Dict, aim_rot=None, aim_trans=None) -> Dict[str, torch.Tensor]:
-        self.optimizer.zero_grad(set_to_none=True)
-        saved_bn = [buf.clone() for buf in self.bn_buffers]
-        losses, total = self.forward_backward(batch, aim_rot, aim_trans)
-        grad_norm, ok = self.apply_gradients(finite_total=torch.isfinite(total))
-        if not ok:
-            with torch.no_grad():
-                for buf, old in zip(self.bn_buffers, saved_bn):
-                    buf.copy_(old)
-        self.step += 1
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["total_loss"] = total.detach()
-        metrics["grad_norm"] = grad_norm.detach()
-        metrics["skipped_nonfinite"] = torch.tensor(0.0 if ok else 1.0)
-        return metrics
+        with trace.span("train.step"):
+            self.optimizer.zero_grad(set_to_none=True)
+            saved_bn = [buf.clone() for buf in self.bn_buffers]
+            losses, total = self.forward_backward(batch, aim_rot, aim_trans)
+            grad_norm, ok = self.apply_gradients(finite_total=torch.isfinite(total))
+            if not ok:
+                with torch.no_grad():
+                    for buf, old in zip(self.bn_buffers, saved_bn):
+                        buf.copy_(old)
+            self.step += 1
+            metrics = {k: v.detach() for k, v in losses.items()}
+            metrics["total_loss"] = total.detach()
+            metrics["grad_norm"] = grad_norm.detach()
+            metrics["skipped_nonfinite"] = torch.tensor(0.0 if ok else 1.0)
+            return metrics
 
     def forward_backward(self, batch: Dict, aim_rot=None, aim_trans=None
                          ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
@@ -129,11 +131,14 @@ class TrainStep:
         ranks into the parameters' .grad: (the global losses, their f32
         total). A non-finite share on any rank makes the global total
         non-finite on every rank."""
-        losses = self.model.train_forward(batch, self.gen, aim_rot, aim_trans)
-        total = torch.stack([v.to(torch.float32) for v in losses.values()]).sum()
-        total.backward()
-        reduce_gradients(self.params)
-        *global_losses, total = all_reduce_sum(list(losses.values()) + [total])
+        with trace.span("train.forward"):
+            losses = self.model.train_forward(batch, self.gen, aim_rot, aim_trans)
+            total = torch.stack([v.to(torch.float32) for v in losses.values()]).sum()
+        with trace.span("train.backward"):
+            total.backward()
+        with trace.span("train.reduce_gradients"):
+            reduce_gradients(self.params)
+            *global_losses, total = all_reduce_sum(list(losses.values()) + [total])
         return dict(zip(losses, global_losses)), total
 
     def apply_gradients(self, finite_total=True) -> Tuple[torch.Tensor, bool]:
@@ -141,18 +146,20 @@ class TrainStep:
         the global gradient norm, then, unless it or `finite_total` is not
         finite, clipping, the scheduled lr and one optimizer step. Returns the
         norm (before clipping) and whether the update was applied."""
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
-        grad_norm = torch.linalg.vector_norm(torch.stack([g.norm() for g in grads]))
-        if not bool(torch.isfinite(grad_norm) & finite_total):
-            return grad_norm, False
-        for p, g in zip(self.params, grads):
-            p.grad = g
-        if self.clip_value is not None:
-            clip_by_global_norm_(grads, grad_norm, self.clip_value)
-        set_lr(self.optimizer, self.schedule(self.updates))
-        self.optimizer.step()
-        self.updates += 1
-        return grad_norm, True
+        with trace.span("train.verdict"):
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+            grad_norm = torch.linalg.vector_norm(torch.stack([g.norm() for g in grads]))
+            if not bool(torch.isfinite(grad_norm) & finite_total):
+                return grad_norm, False
+        with trace.span("train.optimizer"):
+            for p, g in zip(self.params, grads):
+                p.grad = g
+            if self.clip_value is not None:
+                clip_by_global_norm_(grads, grad_norm, self.clip_value)
+            set_lr(self.optimizer, self.schedule(self.updates))
+            self.optimizer.step()
+            self.updates += 1
+            return grad_norm, True
 
 
 def reduce_gradients(params: List[torch.Tensor]) -> int:
@@ -178,20 +185,27 @@ def reduce_gradients(params: List[torch.Tensor]) -> int:
     return n_bytes
 
 
-def synthetic_batches(cfg: CfgNode, n_batches: int, seed: int, n_planes: int = 6,
-                      device: DeviceLike = None) -> Iterable[Dict]:
-    """Collated batches of SOLVER.IMS_PER_BATCH seeded synthetic pairs on
-    `device`, targets in the wire format."""
+def synthetic_host_batches(cfg: CfgNode, n_batches: int, seed: int,
+                           n_planes: int = 6) -> Iterable[Dict]:
+    """Collated numpy batches of SOLVER.IMS_PER_BATCH seeded synthetic pairs,
+    as the loader hands them to `batch_to_device`."""
     h, w = cfg.INPUT.IMAGE_SIZE
     mapper = PairMapper(cfg.MODEL.SEM_SEG_HEAD.NUM_OBJECT_QUERIES, (h, w), cfg.MODEL.PIXEL_MEAN,
                         cfg.MODEL.PIXEL_STD)
     rng = np.random.default_rng(seed)
     bs = cfg.SOLVER.IMS_PER_BATCH
-    dev = resolve_device(device)
     for k in range(n_batches):
         pairs = [make_pair(rng, n_planes=n_planes, h=h, w=w, pair_id=k * bs + i)
                  for i in range(bs)]
-        yield batch_to_device(collate([mapper(p) for p in pairs]), dev)
+        yield collate([mapper(p) for p in pairs])
+
+
+def synthetic_batches(cfg: CfgNode, n_batches: int, seed: int, n_planes: int = 6,
+                      device: DeviceLike = None) -> Iterable[Dict]:
+    """`synthetic_host_batches` on `device`, targets in the wire format."""
+    dev = resolve_device(device)
+    for batch in synthetic_host_batches(cfg, n_batches, seed, n_planes):
+        yield batch_to_device(batch, dev)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

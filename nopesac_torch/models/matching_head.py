@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from ..core.geometry import normalize, warp_planes_identity, warp_planes_to_global
 from ..core import sinkhorn as plain_sinkhorn
 from ..ops.sinkhorn import log_optimal_transport_masked
+from ..utils import trace
 from .transformer import LocalFeatureGNN
 
 
@@ -85,16 +86,18 @@ class MatchingHead(nn.Module):
                 normal_dist, offset_dist = geometric_distances(params1, params2, cam[:, :3],
                                                                cam[:, 3:])
 
-        desc1, desc2 = self.gnn(self._proj(self.planeApp_proj, plane_app1),
-                                self._proj(self.planeApp_proj, plane_app2),
-                                row_masks, col_masks)
-        desc1 = self._proj(self.planeDesc_proj, desc1)
-        desc2 = self._proj(self.planeDesc_proj, desc2)
+        with trace.span("model.matching_gnn"):
+            desc1, desc2 = self.gnn(self._proj(self.planeApp_proj, plane_app1),
+                                    self._proj(self.planeApp_proj, plane_app2),
+                                    row_masks, col_masks)
+            desc1 = self._proj(self.planeDesc_proj, desc1)
+            desc2 = self._proj(self.planeDesc_proj, desc2)
 
         log_scores = torch.matmul(desc1, desc2.transpose(1, 2)) / math.sqrt(self.d_model)
         log_scores = log_scores - offset_dist / self.offset_multiplier
         log_scores = log_scores - normal_dist / self.normal_multiplier
         solve = (plain_sinkhorn.log_optimal_transport_masked if training
                  else log_optimal_transport_masked)
-        return solve(log_scores, self.bin_score, self.sinkhorn_iterations,
-                     row_masks=row_masks, col_masks=col_masks)
+        with trace.span("model.sinkhorn"):
+            return solve(log_scores, self.bin_score, self.sinkhorn_iterations,
+                         row_masks=row_masks, col_masks=col_masks)

@@ -37,6 +37,7 @@ from ..losses.criterion import depth_loss_siamese, detection_losses_siamese, mat
 from ..losses.matching import build_pred_corr_matrix, intersect_with_valid, matching_nll_loss
 from ..ops.select import fused_select_maps
 from ..parallel.dist import world_size
+from ..utils import trace
 from .camera_head import (
     PlaneCameraHead,
     build_geo_sequence,
@@ -142,8 +143,10 @@ class PlaneTRNopeSAC(nn.Module):
     def detect(self, images, gen: Optional[torch.Generator] = None):
         """Backbone + plane head; images [B, 3, H, W] normalised. `gen`
         drives the transformer's dropout (None: no dropout)."""
-        feats = self.backbone(images)
-        outputs, query_feat = self.sem_seg_head(feats, gen)
+        with trace.span("model.backbone"):
+            feats = self.backbone(images)
+        with trace.span("model.plane_head"):
+            outputs, query_feat = self.sem_seg_head(feats, gen)
         return feats, outputs, query_feat
 
     def bn_stats_forward(self, images0, images1, gen: Optional[torch.Generator] = None) -> None:
@@ -197,17 +200,19 @@ class PlaneTRNopeSAC(nn.Module):
 
         # one solve on the device for the final and every aux supervision level
         aux_list = list(out["aux_outputs"]) if st.loss_detection_on else []
-        matches = match_planes_multi([out] + aux_list, targets, st.match_cost_weights())
+        with trace.span("train.matcher"):
+            matches = match_planes_multi([out] + aux_list, targets, st.match_cost_weights())
         match = matches[0]
         if st.loss_detection_on:
-            raw = detection_losses_siamese(out, targets, match, eos_coef=st.no_object_weight)
-            if self.depth_on:
-                raw["loss_depth_pixel"] = depth_loss_siamese(out, targets)
-            losses.update({k: v * loss_weights[k] for k, v in raw.items()})
-            for i, (aux, match_aux) in enumerate(zip(aux_list, matches[1:])):
-                raw = detection_losses_siamese(aux, targets, match_aux,
-                                               eos_coef=st.no_object_weight, aux=True)
-                losses.update({f"{k}_{i}": v * loss_weights[k] for k, v in raw.items()})
+            with trace.span("train.criterion"):
+                raw = detection_losses_siamese(out, targets, match, eos_coef=st.no_object_weight)
+                if self.depth_on:
+                    raw["loss_depth_pixel"] = depth_loss_siamese(out, targets)
+                losses.update({k: v * loss_weights[k] for k, v in raw.items()})
+                for i, (aux, match_aux) in enumerate(zip(aux_list, matches[1:])):
+                    raw = detection_losses_siamese(aux, targets, match_aux,
+                                                   eos_coef=st.no_object_weight, aux=True)
+                    losses.update({f"{k}_{i}": v * loss_weights[k] for k, v in raw.items()})
 
         match0, match1 = match[:b], match[b:]
         qf0, qf1 = qf[:b], qf[b:]
@@ -220,15 +225,17 @@ class PlaneTRNopeSAC(nn.Module):
             gt_corr = build_pred_corr_matrix(match0, match1, *corr, self.num_queries)
             if st.loss_matching_on:
                 rows, cols = match0 >= 0, match1 >= 0
-                log_scores = self.matching_head(qf0, qf1, gt_pose, params0, params1,
-                                                row_masks=rows, col_masks=cols, training=True)
+                with trace.span("model.matching_head"):
+                    log_scores = self.matching_head(qf0, qf1, gt_pose, params0, params1,
+                                                    row_masks=rows, col_masks=cols, training=True)
                 losses["losses_emb_0"] = matching_nll_loss(
                     log_scores, intersect_with_valid(gt_corr, rows, cols))
 
         if not (self.camera_on and st.loss_camera_on):
             return losses
         head = self.camera_head
-        init = head.pixel_camera(feats)
+        with trace.span("model.pixel_camera"):
+            init = head.pixel_camera(feats)
         lt, lr = CL.camera_pose_loss(init["tran"], init["rot"], gt_pose)
         losses["loss_tran_pixelReg"] = lt * st.initial_cam_weight
         losses["loss_rot_pixelReg"] = lr * st.initial_cam_weight
@@ -278,12 +285,13 @@ class PlaneTRNopeSAC(nn.Module):
         def cat(key):
             return torch.cat([br[key] for br in branches])
 
-        tran_c, rot_c, geo_c = cat("tran"), cat("rot"), cat("geo")
-        # the base pose is detached for the geo warp and the sign trick
-        geo_global = warp_geo_sequence(geo_c, tran_c.detach(), rot_c.detach())
-        sig_seq = compute_sig_seq(geo_c, tran_c.detach(), rot_c.detach())
-        ref = head.refine(cat("tf"), cat("rf"), tran_c, rot_c, geo_c, cat("valid"), sig_seq,
-                          geo_global, clamp_scores=True)
+        with trace.span("model.refine"):
+            tran_c, rot_c, geo_c = cat("tran"), cat("rot"), cat("geo")
+            # the base pose is detached for the geo warp and the sign trick
+            geo_global = warp_geo_sequence(geo_c, tran_c.detach(), rot_c.detach())
+            sig_seq = compute_sig_seq(geo_c, tran_c.detach(), rot_c.detach())
+            ref = head.refine(cat("tf"), cat("rf"), tran_c, rot_c, geo_c, cat("valid"), sig_seq,
+                              geo_global, clamp_scores=True)
         for k, br in enumerate(branches):
             ref_k = {key: val[k * b:(k + 1) * b] for key, val in ref.items()}
             losses.update(CL.refine_losses(ref_k, gt_pose, br["valid"], br["num"], br["suffix"],
@@ -368,7 +376,8 @@ class PlaneTRNopeSAC(nn.Module):
         stacked view 0 then view 1: select_planes, the depth maps with
         depth_on, then camera_inference."""
         b = qf_cat.shape[0] // 2
-        sel_cat = self.select_planes(out_cat, out_h, out_w)
+        with trace.span("model.select_planes"):
+            sel_cat = self.select_planes(out_cat, out_h, out_w)
         sel0, sel1 = _split(sel_cat, slice(None, b)), _split(sel_cat, slice(b, None))
         result = {"view0": sel0, "view1": sel1}
         if self.depth_on:
@@ -418,7 +427,8 @@ class PlaneTRNopeSAC(nn.Module):
             init_rot = canonicalize_quat_sign(normalize(init_cam["rot"].to(dt), eps=1e-12))
             init_tran = init_cam["tran"].to(dt)
         else:
-            init = head.pixel_camera(feats_cat)
+            with trace.span("model.pixel_camera"):
+                init = head.pixel_camera(feats_cat)
             init_rot = canonicalize_quat_sign(init["rot"])
             init_tran = init["tran"]
         cameras["camera_init"] = {"tran": init_tran, "rot": init_rot}
@@ -438,8 +448,9 @@ class PlaneTRNopeSAC(nn.Module):
 
         # ---- plane matching with the reconstructed pose as geometric prior
         matcher_cam = torch.cat([base_tran, base_rot], dim=-1)  # [B, 7]
-        log_scores = self.matching_head(qf0, qf1, matcher_cam, params0, params1,
-                                        row_masks=valid0, col_masks=valid1)
+        with trace.span("model.matching_head"):
+            log_scores = self.matching_head(qf0, qf1, matcher_cam, params0, params1,
+                                            row_masks=valid0, col_masks=valid1)
         assignment = mutual_max_assignment(log_scores, self.matching_score_threshold)
         result["log_scores"] = log_scores
         result["assignment_beforeRef"] = assignment
@@ -451,18 +462,19 @@ class PlaneTRNopeSAC(nn.Module):
             return result
 
         # ---- NOPE-SAC refinement
-        if gt_geo is not None:
-            geo_local, seq_valid, num_matches = build_gt_geo_sequence(
-                gt_geo["params0"], gt_geo["params1"], gt_geo["corr_idx1"], gt_geo["corr_idx2"],
-                gt_geo["corr_valid"])
-            geo_local = geo_local.to(dt)
-        else:
-            geo_local, seq_valid, num_matches = build_geo_sequence(
-                params0, params1, assignment, self.num_queries)
-        geo_global = warp_geo_sequence(geo_local, base_tran, base_rot)
-        sig_seq = compute_sig_seq(geo_local, base_tran, base_rot)
-        ref = head.refine(base_tran_feat, base_rot_feat, base_tran, base_rot,
-                          geo_local, seq_valid, sig_seq, geo_global)
+        with trace.span("model.refine"):
+            if gt_geo is not None:
+                geo_local, seq_valid, num_matches = build_gt_geo_sequence(
+                    gt_geo["params0"], gt_geo["params1"], gt_geo["corr_idx1"],
+                    gt_geo["corr_idx2"], gt_geo["corr_valid"])
+                geo_local = geo_local.to(dt)
+            else:
+                geo_local, seq_valid, num_matches = build_geo_sequence(
+                    params0, params1, assignment, self.num_queries)
+            geo_global = warp_geo_sequence(geo_local, base_tran, base_rot)
+            sig_seq = compute_sig_seq(geo_local, base_tran, base_rot)
+            ref = head.refine(base_tran_feat, base_rot_feat, base_tran, base_rot,
+                              geo_local, seq_valid, sig_seq, geo_global)
 
         # m <= 1 fallbacks: m == 0 -> initial pose; m == 1 -> avg(excl) pose
         m = num_matches[:, None]
