@@ -28,6 +28,7 @@ from ..core.metrics import compare_planes, compute_ap, rotation_angle_error_deg
 from ..data.registry import DatasetCatalog, MetadataCatalog
 from ..parallel.host_gather import all_gather_objects, is_main_process
 from ..utils import rle as rle_util
+from ..utils import trace
 from .coco_json import write_siamese_coco_json
 
 logger = logging.getLogger(__name__)
@@ -39,6 +40,40 @@ def _gt_rle(ann: dict, height: int, width: int):
         return {"size": seg["size"], "counts": seg["counts"]}
     mask = rle_util.poly_to_mask(seg, height, width)
     return rle_util.encode(mask)
+
+
+class _MaskIous:
+    """The mask IoU matrices of one `evaluate()` call, which the plane AP and
+    the matching passes both read, and the GT RLEs they come from. Keyed on
+    the identity of the prediction view and the GT view, never on an image
+    id: two pairs may share an image id and hold different predictions. The
+    views outlive the memo, so their ids stay theirs while it lives."""
+
+    def __init__(self):
+        self._gt: Dict[int, list] = {}
+        self._iou: Dict[tuple, np.ndarray] = {}
+
+    def gt_rles(self, view: dict) -> list:
+        """The view's GT masks as RLEs, a polygon rasterised once."""
+        rles = self._gt.get(id(view))
+        if rles is None:
+            h, w = view.get("height", 480), view.get("width", 640)
+            rles = self._gt[id(view)] = [_gt_rle(a, h, w) for a in view.get("annotations", [])]
+        return rles
+
+    def iou(self, pred_view: dict, gt_view: dict) -> np.ndarray:
+        """[predictions, GT planes] mask IoU of a prediction view against a GT
+        view (both non-empty)."""
+        key = (id(pred_view), id(gt_view))
+        miou = self._iou.get(key)
+        if miou is not None:
+            trace.count("eval.iou_reused")
+            return miou
+        gt_rles = self.gt_rles(gt_view)
+        pred_rles = [ins["segmentation"] for ins in pred_view["instances"]]
+        miou = self._iou[key] = rle_util.iou(pred_rles, gt_rles, [0] * len(gt_rles))
+        trace.count("eval.iou_matrices")
+        return miou
 
 
 class MP3DEvaluator:
@@ -202,16 +237,17 @@ class MP3DEvaluator:
                 logger.exception("COCO json dump failed (non-fatal)")
 
         results: "OrderedDict" = OrderedDict()
+        ious = _MaskIous()
         if "segm" in self._tasks:
             singles = self._siamese_to_single(predictions)
             if singles and "instances" in singles[0]:
-                results.update(self._eval_planes(singles))
+                results.update(self._eval_planes(singles, ious))
             if singles and "depth_l1_dist" in singles[0]:
                 vals = [p["depth_l1_dist"] for p in singles]
                 results["depth_l1_dist"] = float(np.mean(vals))
                 self._log(f"Depth metrics: depth_l1_dist={results['depth_l1_dist']:.4f}")
         if "embedding" in self._plane_tasks:
-            results.update(self._eval_matching(predictions))
+            results.update(self._eval_matching(predictions, ious))
         if "camera" in self._plane_tasks:
             for key in predictions[0]:
                 if "onePP" in key:
@@ -254,8 +290,8 @@ class MP3DEvaluator:
         return singles
 
     # ------------------------------------------------------------------
-    def _eval_planes(self, predictions, iou_thresh=0.5, normal_threshold=30.0,
-                     offset_threshold=0.3):
+    def _eval_planes(self, predictions, ious: _MaskIous, iou_thresh=0.5,
+                     normal_threshold=30.0, offset_threshold=0.3):
         """Mask AP + plane AP variants (mp3d_evaluation.py:467-743)."""
         mask_s, mask_l = [], []
         plane_s, plane_l = [], []
@@ -272,17 +308,13 @@ class MP3DEvaluator:
             insts = pred["instances"]
             if not insts:
                 continue
-            h = gt_view.get("height", 480)
-            w = gt_view.get("width", 640)
             gt_anns = gt_view.get("annotations", [])
             if not gt_anns:
                 continue
-            gt_rles = [_gt_rle(a, h, w) for a in gt_anns]
             gt_planes = [a["plane"] for a in gt_anns]
 
-            pred_rles = [ins["segmentation"] for ins in insts]
             scores = np.asarray([ins["score"] for ins in insts])
-            miou = rle_util.iou(pred_rles, gt_rles, [0] * len(gt_rles))
+            miou = ious.iou(pred, gt_view)
             pm = compare_planes(np.asarray(pred["pred_plane"]), gt_planes)
 
             order = np.argsort(-scores, kind="stable")
@@ -342,7 +374,7 @@ class MP3DEvaluator:
         return det
 
     # ------------------------------------------------------------------
-    def _eval_matching(self, predictions, iou_thresh=0.5):
+    def _eval_matching(self, predictions, ious: _MaskIous, iou_thresh=0.5):
         """Correspondence precision/recall/F (mp3d_evaluation.py:746-849)."""
         keys = [k for k in predictions[0] if "assignment" in k]
         stats = {k: {"correct": 0, "matched": 0} for k in keys}
@@ -358,15 +390,12 @@ class MP3DEvaluator:
 
             matched_iou, matched_gt = [], []
             for i in ("0", "1"):
-                view = gt_pair[i]
-                h, wdt = view.get("height", 480), view.get("width", 640)
-                gt_rles = [_gt_rle(a, h, wdt) for a in view.get("annotations", [])]
-                pred_rles = [ins["segmentation"] for ins in pred[i].get("instances", [])]
-                if not pred_rles or not gt_rles:
-                    matched_iou.append(np.zeros(len(pred_rles)))
-                    matched_gt.append(np.zeros(len(pred_rles), int))
+                n_pred = len(pred[i].get("instances", []))
+                if not n_pred or not ious.gt_rles(gt_pair[i]):
+                    matched_iou.append(np.zeros(n_pred))
+                    matched_gt.append(np.zeros(n_pred, int))
                     continue
-                miou = rle_util.iou(pred_rles, gt_rles, [0] * len(gt_rles))
+                miou = ious.iou(pred[i], gt_pair[i])
                 matched_iou.append(miou.max(-1))
                 matched_gt.append(miou.argmax(-1))
 

@@ -4,8 +4,10 @@ reference codec; it replaces the pycocotools C extension).
 The byte format is the standard COCO compressed RLE: column-major (Fortran
 order) run lengths, LEB128-style base-6-bit ascii with sign-folded deltas
 from the fourth count on. Every encoder here is byte-identical to
-pycocotools' `encode`. The port has this one numpy path; a native host codec
-is not ported.
+pycocotools' `encode`. `iou` works on the run lengths, with no dense mask: its
+intersections are overlaps of sorted on-runs, so its cost grows with the
+number of runs, not of pixels, and it is exact (integer areas). There is no
+native host codec.
 """
 from __future__ import annotations
 
@@ -119,21 +121,58 @@ def to_bbox(rle: RLE) -> np.ndarray:
     return np.asarray([x0, y0, x1 - x0 + 1, y1 - y0 + 1], dtype=np.float64)
 
 
+def _on_runs(rle: RLE, n: int):
+    """An RLE's on-runs as [start, end) of the column-major flat index, as
+    `decode` fills them: negative counts count as 0 and nothing passes pixel
+    n. Sorted, disjoint, possibly empty."""
+    ends = np.minimum(np.cumsum(np.maximum(_to_runs(rle), 0)), n)
+    starts = np.concatenate([[0], ends[:-1]]).astype(np.int64)
+    return starts[1::2], ends[1::2]
+
+
 def iou(dt: List[RLE], gt: List[RLE], iscrowd=None) -> np.ndarray:
-    """Pairwise mask IoU matrix [len(dt), len(gt)] (pycocotools.mask.iou)."""
+    """Pairwise mask IoU matrix [len(dt), len(gt)] (pycocotools.mask.iou).
+
+    The gt masks' on-runs, each mask shifted by its index times H*W, make one
+    sorted list; the length of it below a point x is one `searchsorted`. Each
+    dt run [s, e) overlaps gt j by that length at e + j*H*W less that at
+    s + j*H*W, and a dt mask's intersection is the sum over its runs. Every
+    mask must have the same size."""
     if len(dt) == 0 or len(gt) == 0:
         return np.zeros((len(dt), len(gt)))
+    h, w = dt[0]["size"]
+    for r in list(dt) + list(gt):
+        if tuple(r["size"]) != (h, w):
+            raise ValueError(f"RLE size mismatch in iou: {r['size']} vs {[h, w]}")
+    n = int(h) * int(w)
+    d_runs = [_on_runs(r, n) for r in dt]
+    g_runs = [_on_runs(r, n) for r in gt]
+    offsets = np.arange(len(gt), dtype=np.int64) * n
+    # the gt table, closed by a run past every query so each lookup has a next run
+    sentinel = np.asarray([len(gt) * n + 1], np.int64)
+    g_starts = np.concatenate([s + o for (s, _), o in zip(g_runs, offsets)] + [sentinel])
+    g_ends = np.concatenate([e + o for (_, e), o in zip(g_runs, offsets)] + [sentinel])
+    g_cum = np.concatenate([[0], np.cumsum(g_ends - g_starts)[:-1]])
+
+    def covered(x):  # the table's length below each x
+        k = np.searchsorted(g_ends, x, side="right")
+        return g_cum[k] + np.maximum(x - g_starts[k], 0)
+
+    d_starts = np.concatenate([s for s, _ in d_runs])
+    d_ends = np.concatenate([e for _, e in d_runs])
+    per_run = covered(d_ends[:, None] + offsets) - covered(d_starts[:, None] + offsets)
+    # a dt mask's runs are a block of rows: sum each block by a cumulative sum
+    bounds = np.cumsum([0] + [len(s) for s, _ in d_runs])
+    acc = np.concatenate([np.zeros((1, len(gt)), np.int64), np.cumsum(per_run, axis=0)])
+    inter = acc[bounds[1:]] - acc[bounds[:-1]]
+
+    dt_a = np.asarray([int((e - s).sum()) for s, e in d_runs], np.int64)[:, None]
+    gt_a = np.asarray([int((e - s).sum()) for s, e in g_runs], np.int64)[None, :]
+    crowd = np.asarray([bool(iscrowd[j]) if iscrowd is not None else False
+                        for j in range(len(gt))])
+    denom = np.where(crowd[None, :], dt_a, dt_a + gt_a - inter)
     out = np.zeros((len(dt), len(gt)))
-    dt_m = [decode(d).astype(bool) for d in dt]
-    gt_m = [decode(g).astype(bool) for g in gt]
-    dt_a = [m.sum() for m in dt_m]
-    gt_a = [m.sum() for m in gt_m]
-    for i, dm in enumerate(dt_m):
-        for j, gm in enumerate(gt_m):
-            inter = np.logical_and(dm, gm).sum()
-            crowd = bool(iscrowd[j]) if iscrowd is not None else False
-            denom = dt_a[i] if crowd else dt_a[i] + gt_a[j] - inter
-            out[i, j] = inter / denom if denom > 0 else 0.0
+    np.divide(inter, denom, out=out, where=denom > 0)
     return out
 
 

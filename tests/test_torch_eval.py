@@ -9,6 +9,7 @@ numpy arithmetic on the same inputs. The whole entry point runs the model,
 so its cameras agree within 1e-3 (tests/test_torch_slice.py); its AP and
 matching values, whose inputs are plane masks and assignments, agree exactly.
 """
+import copy
 import json
 import os
 import pickle
@@ -38,7 +39,7 @@ from nopesac_torch.engine.predict import build_model_from_cfg
 from nopesac_torch.engine.test import EvalRunner
 from nopesac_torch.evaluation.evaluator import MP3DEvaluator
 from nopesac_torch.evaluation.postprocess import postprocess_batch
-from nopesac_torch.utils import rle
+from nopesac_torch.utils import rle, trace
 from nopesac_torch.utils.weights import state_dict_from_jax
 from torch_cpu import SUBPROCESS_ENV, torch_threads  # noqa: F401  (CPU thread budget)
 
@@ -279,6 +280,42 @@ def test_postprocess_and_evaluator_match_jax_exactly(tmp_path):
     assert_same(dict(got), dict(ref))
     for a, b in zip(_load_artifacts(tcfg.OUTPUT_DIR), _load_artifacts(jcfg.OUTPUT_DIR)):
         assert_same(a, b)
+
+
+def test_evaluator_computes_each_views_iou_once(tmp_path):
+    """evaluate()'s two passes read one mask IoU matrix per (prediction view,
+    GT view). Pair 2 shows pair 0's view 0 again (the same image id, its own
+    dicts) with other predictions: the plane AP pass skips it as a seen image,
+    the matching pass must not take pair 0's matrix for it."""
+    pairs, jpairs = make_dataset(4, 4, seed=5, h=H, w=W), jax_make_dataset(4, 4, seed=5, h=H, w=W)
+    for ps in (pairs, jpairs):
+        ps[2]["0"] = copy.deepcopy(ps[0]["0"])
+    jcfg, tcfg = _eval_cfgs(str(tmp_path))
+    theirs = JaxEvaluator("synthetic_test", jcfg, dataset_list=jpairs)
+    ours = MP3DEvaluator("synthetic_test", tcfg, dataset_list=pairs)
+    for lo, seed in ((0, 6), (2, 7)):
+        batch, jbatch = pairs[lo:lo + 2], jpairs[lo:lo + 2]
+        infer = fake_inference(batch, seed=seed)
+        metas = [{"image_id0": p["0"]["image_id"], "image_id1": p["1"]["image_id"],
+                  "file_name0": p["0"]["file_name"], "file_name1": p["1"]["file_name"]}
+                 for p in batch]
+        theirs.process(jbatch, jax_postprocess(infer, metas, H, W))
+        ours.process(batch, postprocess_batch(infer, metas, H, W))
+    ref = theirs.evaluate()
+    trace.reset()
+    trace.enable()
+    try:
+        got = ours.evaluate()
+    finally:
+        trace.disable()
+    counts = trace.snapshot()["counts"]
+    trace.reset()
+    assert 0 < ref["mask_ap@0.5"] < 1 and 0 < ref["precision"] < 1 and 0 < ref["recall"] < 1
+    assert_same(dict(got), dict(ref))
+    # 8 views of 4 pairs, each its own (prediction view, GT view): the plane AP
+    # pass computes 7 (pair 2's view 0 is a seen image), the matching pass reads
+    # those 7 and computes pair 2's view 0
+    assert counts.get("eval.iou_matrices") == 8 and counts.get("eval.iou_reused") == 7, counts
 
 
 # --------------------------------------------------- (f) the whole entry point

@@ -132,10 +132,12 @@ def test_setups_feed_the_recorder(kind, tmp_path):
     if kind == "entry":
         assert calls["eval.test"] == calls["eval.evaluate"] == 1
         assert step.__self__.last_eval_stats["pairs"] == 2 * n
+        # each view's mask IoU computed by the plane AP pass, read again by the matching pass
+        assert snap["counts"] == {"eval.iou_matrices": 4 * n, "eval.iou_reused": 4 * n}
     if kind == "train":
         arrays = [a for b in batches[1:] for k, v in b.items() if k != "meta"
                   for a in (v.values() if isinstance(v, dict) else [v])]
         assert snap["counts"] == {"data.h2d_bytes": sum(a.nbytes for a in arrays),
                                   "data.h2d_copies": len(arrays)}
-    else:
+    elif kind == "eval":
         assert snap["counts"] == {}
