@@ -9,14 +9,25 @@
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 # suncg -> habitat axis flip applied to plane parameters before SE(3) warps.
 SUNCG_TO_HABITAT = (1.0, -1.0, -1.0)
 
 
+@functools.lru_cache(maxsize=None)
+def _flip_vector(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """SUNCG_TO_HABITAT on `device`, made once per (device, dtype): a host
+    value copied per call would make the host wait for the device. Made
+    outside inference mode, so training can save it for the backward."""
+    with torch.inference_mode(False):
+        return torch.tensor(SUNCG_TO_HABITAT, dtype=dtype).to(device)
+
+
 def _flip(planes: torch.Tensor) -> torch.Tensor:
-    return planes * planes.new_tensor(SUNCG_TO_HABITAT)
+    return planes * _flip_vector(planes.device, planes.dtype)
 
 
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:

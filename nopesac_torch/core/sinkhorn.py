@@ -53,7 +53,7 @@ def masked_ot_prologue(scores: torch.Tensor, alpha: torch.Tensor,
     padded = torch.cat(
         [torch.cat([scores, alpha.expand(b, m, 1)], dim=-1), alpha.expand(b, 1, n + 1)],
         dim=1)
-    padded = torch.where(score_invalid, padded.new_tensor(-_INF), padded)
+    padded = torch.where(score_invalid, -_INF, padded)
 
     num_valid_row = row_masks.to(dtype).sum(dim=1)  # [B]
     num_valid_col = col_masks.to(dtype).sum(dim=1)  # [B]
@@ -61,10 +61,10 @@ def masked_ot_prologue(scores: torch.Tensor, alpha: torch.Tensor,
 
     log_mu = torch.cat([norm[:, None].expand(b, m), (torch.log(num_valid_col) + norm)[:, None]],
                        dim=1)
-    log_mu = torch.where(row_invalid, log_mu.new_tensor(-_INF), log_mu)
+    log_mu = torch.where(row_invalid, -_INF, log_mu)
     log_nu = torch.cat([norm[:, None].expand(b, n), (torch.log(num_valid_row) + norm)[:, None]],
                        dim=1)
-    log_nu = torch.where(col_invalid, log_nu.new_tensor(-_INF), log_nu)
+    log_nu = torch.where(col_invalid, -_INF, log_nu)
     return padded, log_mu, log_nu, norm
 
 

@@ -102,22 +102,34 @@ def make_eval_step(model: PlaneTRNopeSAC, out_h: int = 480, out_w: int = 640,
     TEST.POSE_REFINEMENT_WITH_GT_MATCHERS) and `init_cam` (the SparsePlanes
     top-1 camera, MODEL.CAMERA_HEAD.INFERENCE_SP_TOPCAM_ON) are dicts of
     arrays or tensors (`PlaneTRNopeSAC.camera_inference`); the step moves
-    them and the images to the model's device."""
+    them and the images to the model's device.
+
+    Host inputs go to a CUDA device through pinned memory by a non-blocking
+    copy: a copy from pageable memory waits until the stream has drained,
+    so the host would wait for the batch before. `pin_memory` takes its
+    buffer from PyTorch's caching host allocator, which does not reuse it
+    until the copy out of it has run."""
     dev = next(model.parameters()).device
-    mean = torch.from_numpy(np.asarray(pixel_mean, np.float32)).to(dev)
-    inv_std = torch.from_numpy((1.0 / np.asarray(pixel_std, np.float32)).astype(np.float32)).to(dev)
+
+    def upload(t: torch.Tensor) -> torch.Tensor:
+        if dev.type == "cuda" and t.device.type == "cpu":
+            return t.pin_memory().to(dev, non_blocking=True)
+        return t.to(dev)
+
+    mean = upload(torch.from_numpy(np.asarray(pixel_mean, np.float32)))
+    inv_std = upload(torch.from_numpy((1.0 / np.asarray(pixel_std, np.float32)).astype(np.float32)))
 
     def norm(img: torch.Tensor) -> torch.Tensor:
         if img.dtype != torch.uint8 or img.dim() != 4 or img.shape[-1] != 3:
             raise ValueError(f"eval step takes uint8 [B, H, W, 3] images, got {img.dtype} "
                              f"{tuple(img.shape)}")
-        x = (img.to(dev).to(torch.float32) - mean) * inv_std
+        x = (upload(img).to(torch.float32) - mean) * inv_std
         return x.permute(0, 3, 1, 2).contiguous()
 
     def to_dev(arrays):
         if arrays is None:
             return None
-        return {k: torch.as_tensor(v).to(dev) for k, v in arrays.items()}
+        return {k: upload(torch.as_tensor(v)) for k, v in arrays.items()}
 
     def eval_step(image0: torch.Tensor, image1: torch.Tensor, gt_geo=None, init_cam=None):
         with torch.inference_mode():

@@ -82,7 +82,9 @@ def build_eval_model(cfg: CfgNode, device: DeviceLike = None, seed: int = 0,
 
 
 def _fetch(tree):
-    """Start copying the eval step's outputs to the host without waiting."""
+    """Start copying the eval step's outputs to the host without waiting: a
+    non-blocking copy from a CUDA device lands in pinned memory, which
+    PyTorch allocates for it."""
     if isinstance(tree, dict):
         return {k: _fetch(v) for k, v in tree.items()}
     return tree.to("cpu", non_blocking=True)

@@ -275,7 +275,7 @@ class PlaneCameraHead(Cast, nn.Module):
 
         # ---- masked softmax over the valid hypotheses (dim 1)
         def masked_softmax(logit):
-            logit = torch.where(hyp_valid[:, :, None], logit, logit.new_tensor(-float("inf")))
+            logit = torch.where(hyp_valid[:, :, None], logit, -float("inf"))
             s = torch.softmax(logit, dim=1)
             if not clamp_scores:
                 return s * mask_col0

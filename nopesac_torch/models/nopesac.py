@@ -338,8 +338,8 @@ class PlaneTRNopeSAC(nn.Module):
         nonempty = (mask_area >= 1) & (orig_cnt >= 1)
         keep = nonempty & (overlap >= self.overlap_threshold) & valid
 
-        ov_for_max = torch.where(nonempty, overlap, overlap.new_tensor(-1.0))
-        ov_for_max = torch.where(valid, ov_for_max, overlap.new_tensor(-2.0))
+        ov_for_max = torch.where(nonempty, overlap, -1.0)
+        ov_for_max = torch.where(valid, ov_for_max, -2.0)
         fallback2 = F.one_hot(torch.argmax(ov_for_max, dim=1), nq).bool()
         any_keep = keep.any(dim=1, keepdim=True)
         zero_case = ~any_valid  # [B, 1]
@@ -417,10 +417,10 @@ class PlaneTRNopeSAC(nn.Module):
             raise ValueError("init_cam (INFERENCE_SP_TOPCAM_ON) needs CAM_REC_ON: the given "
                              "pose has no PixelCameraHead features, so the AIM heads must "
                              "make them")
-        cameras = {"camera_zero": {
-            "tran": torch.zeros((b, 3), dtype=dt, device=dev),
-            "rot": torch.tensor([[1.0, 0.0, 0.0, 0.0]], dtype=dt, device=dev).repeat(b, 1),
-        }}
+        identity = torch.zeros((b, 4), dtype=dt, device=dev)
+        identity[:, 0] = 1.0
+        cameras = {"camera_zero": {"tran": torch.zeros((b, 3), dtype=dt, device=dev),
+                                   "rot": identity}}
         result = {}
         if init_cam is not None:
             init = None
@@ -491,13 +491,11 @@ class PlaneTRNopeSAC(nn.Module):
         else:
             hv = ref["hyp_valid"]
             if kind == "max-score":
-                ninf = ref["score_rot"].new_tensor(-float("inf"))
-                ridx = torch.argmax(torch.where(hv, ref["score_rot"], ninf), dim=1)
-                tidx = torch.argmax(torch.where(hv, ref["score_trans"], ninf), dim=1)
+                ridx = torch.argmax(torch.where(hv, ref["score_rot"], -float("inf")), dim=1)
+                tidx = torch.argmax(torch.where(hv, ref["score_trans"], -float("inf")), dim=1)
             else:  # "min-cost"
-                inf = ref["normal_l2_sum"].new_tensor(float("inf"))
-                ridx = torch.argmin(torch.where(hv, ref["normal_l2_sum"], inf), dim=1)
-                tidx = torch.argmin(torch.where(hv, ref["l2_dist_sum"], inf), dim=1)
+                ridx = torch.argmin(torch.where(hv, ref["normal_l2_sum"], float("inf")), dim=1)
+                tidx = torch.argmin(torch.where(hv, ref["l2_dist_sum"], float("inf")), dim=1)
             rows = torch.arange(b, device=dev)
             rot_f = ref["rots_all"][rows, ridx]
             tran_f = ref["trans_all"][rows, tidx]

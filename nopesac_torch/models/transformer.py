@@ -170,10 +170,10 @@ class GNNLayer(nn.Module):
         v = self.v_proj(source).reshape(b, -1, self.nhead, dh).transpose(1, 2)
         logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(dh)  # [B, H, L, S]
         keep = (x_mask[:, :, None] & source_mask[:, None, :])[:, None]  # [B, 1, L, S]
-        logits = torch.where(keep, logits, logits.new_tensor(-1e9))
+        logits = torch.where(keep, logits, -1e9)
         attn = torch.softmax(logits, dim=-1)
         # masked weights are set back to exactly zero after the softmax
-        attn = torch.where(keep, attn, attn.new_tensor(0.0))
+        attn = torch.where(keep, attn, 0.0)
         msg = torch.matmul(attn, v).transpose(1, 2).reshape(b, l, c)
         msg = self.norm1(self.merge(msg))
         msg = self.norm2(self.mlp(torch.cat([x, msg], dim=-1)))

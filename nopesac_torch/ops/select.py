@@ -38,7 +38,7 @@ def select_maps_plain(mask_prob: torch.Tensor, score: torch.Tensor, valid: torch
     up = F.interpolate(mask_prob.to(f32), size=(out_h, out_w), mode="bilinear",
                        align_corners=False)
     scaled = up * score.to(f32)[:, :, None, None]
-    gated = torch.where(valid[:, :, None, None], scaled, scaled.new_tensor(-1.0))
+    gated = torch.where(valid[:, :, None, None], scaled, -1.0)
     seg = torch.argmax(gated, dim=1).to(torch.int32)
     mx = torch.amax(gated, dim=1)
 

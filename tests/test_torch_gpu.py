@@ -8,10 +8,15 @@ nor the JAX package, so they run where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from nopesac_torch.config.config import get_cfg
+from nopesac_torch.engine.predict import build_model_from_cfg, make_eval_step
+from nopesac_torch.engine.test import _fetch, _numpy
 from nopesac_torch.losses.hungarian import hungarian, hungarian_plain
 from nopesac_torch.losses.hungarian_cases import FAMILIES, SHAPES, cost_family
 from nopesac_torch.models.resnet import ResNet
@@ -493,3 +498,56 @@ def test_hungarian_on_card_takes_the_kernel_and_clamps_num_gt(cuda):
     empty = hungarian_cuda(torch.zeros((0, 50, 50), device=cuda),
                            torch.zeros(0, dtype=torch.int64, device=cuda))
     assert tuple(empty.shape) == (0, 50) and LAUNCHES["hungarian"] == before + 1
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+@pytest.mark.parametrize("ablations", [False, True])
+def test_eval_step_makes_the_host_wait_nowhere(cuda, ablations):
+    """One warm eval step of the shipped config (480x640, batch 4, seeded
+    weights) from the uint8 images on the host through the enqueue of the
+    fetch runs under `set_sync_debug_mode("error")`: no blocking copy, no
+    synchronisation. The fetch lands in pinned memory, so it does not wait
+    either, and the outputs are bit-equal to a step run with the mode off.
+    With `ablations`, the GT-matcher and SparsePlanes-camera inputs go up
+    from host arrays too."""
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(os.path.dirname(__file__), "..", "configs",
+                                     "inference_mp3d.yaml"))
+    h, w = cfg.INPUT.IMAGE_SIZE
+    bs, nq = cfg.TEST.IMS_PER_BATCH, cfg.MODEL.SEM_SEG_HEAD.NUM_OBJECT_QUERIES
+    step = make_eval_step(build_model_from_cfg(cfg, device=cuda, seed=0), h, w,
+                          cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
+    rng = np.random.default_rng(5)
+    images = [torch.from_numpy(rng.integers(0, 256, (bs, h, w, 3), dtype=np.uint8))
+              for _ in range(2)]
+    extra = {}
+    if ablations:
+        extra = {"gt_geo": {"params0": rng.normal(size=(bs, nq, 3)).astype(np.float32),
+                            "params1": rng.normal(size=(bs, nq, 3)).astype(np.float32),
+                            "corr_idx1": rng.integers(0, nq, size=(bs, nq)),
+                            "corr_idx2": rng.integers(0, nq, size=(bs, nq)),
+                            "corr_valid": rng.random((bs, nq)) < 0.3},
+                 "init_cam": {"tran": rng.normal(size=(bs, 3)).astype(np.float32),
+                              "rot": rng.normal(size=(bs, 4)).astype(np.float32)}}
+    warm = _fetch(step(*images, **extra))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = _fetch(step(*images, **extra))
+        done = torch.cuda.Event()
+        done.record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    done.synchronize()
+    assert all(t.is_pinned() for t in _leaves(out))
+    got, want = _numpy(out), _numpy(warm)
+    assert list(_leaves(got)) and "camera_onePP" in got
+    for a, b in zip(_leaves(got), _leaves(want)):
+        assert a.dtype == b.dtype and np.array_equal(a, b, equal_nan=True)
