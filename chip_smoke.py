@@ -383,6 +383,15 @@ def launches_want(**counts):
     return {n: counts.get(n, 0) for n in KERNEL_NAMES}
 
 
+def keep(tree):
+    """A copy of an eval step's device outputs: the step returns its CUDA
+    graphs' static buffers, which its next call with the same input
+    signature overwrites."""
+    if isinstance(tree, dict):
+        return {k: keep(v) for k, v in tree.items()}
+    return tree.clone()
+
+
 def cuda_ms(torch, fn, warm=3, iters=20):
     """CUDA-event ms per call over `iters` warm calls, as the host issues them."""
     for _ in range(warm):
@@ -703,7 +712,7 @@ def run_main_path(torch, dev, card):
         torch.cuda.synchronize()
         LAUNCHES.reset()
         t0 = time.perf_counter()
-        outs = [step(*pair) for pair in batches[1:]]
+        outs = [keep(step(*pair)) for pair in batches[1:]]
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = LAUNCHES.snapshot()
@@ -2497,6 +2506,7 @@ def check_b4_summation_orders(torch, dev, bottleneck):
 
 def run_fused_path(torch, dev, model, batches, outs, card):
     from nopesac_torch.engine.predict import build_model_from_cfg, make_eval_step
+    from nopesac_torch.utils import graphs
     from nopesac_torch.utils.device import LAUNCHES
 
     cfg = load_cfg()
@@ -2530,12 +2540,13 @@ def run_fused_path(torch, dev, model, batches, outs, card):
     del backbones, feats, ref
     step = make_eval_step(fused, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
     plain_step = make_eval_step(model, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
+    graphs.drop(fused)  # the counted calls capture and replay: launches count at each replay
     with torch.inference_mode():
         step(*batches[0])  # warm-up
         torch.cuda.synchronize()
         LAUNCHES.reset()
         t0 = time.perf_counter()
-        fused_outs = [step(*pair) for pair in batches[1:]]
+        fused_outs = [keep(step(*pair)) for pair in batches[1:]]
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = LAUNCHES.snapshot()
@@ -2578,7 +2589,7 @@ def run_bf16_eval_path(torch, dev, model, fused, batches, card):
             torch.cuda.synchronize()
             LAUNCHES.reset()
             t0 = time.perf_counter()
-            outs16 = [step(*pair) for pair in batches[1:]]
+            outs16 = [keep(step(*pair)) for pair in batches[1:]]
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             counts = LAUNCHES.snapshot()
@@ -2719,6 +2730,7 @@ def run_entry_point(torch, dev, fused, planar_out, card):
     from nopesac_torch.engine.predict import make_eval_step, synthetic_pairs
     from nopesac_torch.engine.test import EvalRunner
     from nopesac_torch.evaluation.postprocess import postprocess_batch
+    from nopesac_torch.utils import graphs
     from nopesac_torch.utils.device import LAUNCHES
 
     out_dir = os.path.join(REPO, "output", "eval_entry_point")
@@ -2736,6 +2748,7 @@ def run_entry_point(torch, dev, fused, planar_out, card):
     print(f"[entry] {ENTRY_PAIRS} synthetic pairs of {h}x{w}, {TRAIN_PLANES} planes per view, "
           f"made in {time.perf_counter() - t0:.2f} s")
     runner = EvalRunner(cfg, fused)
+    graphs.drop(fused)  # the split's batches run eagerly, capture and replay: each counts
     LAUNCHES.reset()
     t0 = time.perf_counter()
     results = runner.test(dataset_list=pairs)
@@ -3168,6 +3181,7 @@ def run_ablations(torch, dev, model, fused, card):
     from nopesac_torch.config.config import get_cfg
     from nopesac_torch.engine.predict import build_model_from_cfg, make_eval_step
     from nopesac_torch.engine.test import EvalRunner
+    from nopesac_torch.utils import graphs
     from nopesac_torch.utils.device import LAUNCHES
 
     cfg = load_cfg()
@@ -3182,18 +3196,23 @@ def run_ablations(torch, dev, model, fused, card):
     steps["plain (phase 5)"] = make_eval_step(model, h, w, cfg.MODEL.PIXEL_MEAN,
                                               cfg.MODEL.PIXEL_STD)
     pixel_camera_calls = []
+    # a replay runs the head inside its graph and calls no hook: the capture's
+    # call reports it at each replay
     hooks = [m.camera_head.pixel_decoder.register_forward_hook(
-        lambda *_: pixel_camera_calls.append(1)) for m in (model, depth_model, fused)]
+        lambda *_: graphs.on_replay(lambda: pixel_camera_calls.append(1)))
+        for m in (model, depth_model, fused)]
     outs, times = {}, {}
     with torch.inference_mode():
         for variant, step in steps.items():
             args = ablation_args(torch, variant, batches, nq, seed=42)
+            for m in (model, depth_model):
+                graphs.drop(m)  # the counted calls capture and replay: each counts
             step(**args[0])  # warm-up
             torch.cuda.synchronize()
             LAUNCHES.reset()
             pixel_camera_calls.clear()
             t0 = time.perf_counter()
-            outs[variant] = [step(**a) for a in args[1:]]
+            outs[variant] = [keep(step(**a)) for a in args[1:]]
             torch.cuda.synchronize()
             times[variant] = (time.perf_counter() - t0) / N_BATCHES * 1e3
             counts = LAUNCHES.snapshot()
@@ -3228,11 +3247,12 @@ def run_ablations(torch, dev, model, fused, card):
         # (a) through the fused-tail backbone
         step = make_eval_step(fused, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
         args = ablation_args(torch, "gt_matcher", batches, nq, seed=42)
+        graphs.drop(fused)
         step(**args[0])
         torch.cuda.synchronize()
         LAUNCHES.reset()
         t0 = time.perf_counter()
-        fused_outs = [step(**a) for a in args[1:]]
+        fused_outs = [keep(step(**a)) for a in args[1:]]
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / N_BATCHES * 1e3
         counts = LAUNCHES.snapshot()

@@ -22,6 +22,7 @@ import torch
 
 from ..config.config import CfgNode, get_cfg
 from ..models.nopesac import PlaneTRNopeSAC, TrainSettings
+from ..utils import graphs
 from ..utils.device import DeviceLike, resolve_device, resolve_dtype, set_f32_parity
 from ..utils.weights import seeded_init
 
@@ -108,7 +109,18 @@ def make_eval_step(model: PlaneTRNopeSAC, out_h: int = 480, out_w: int = 640,
     copy: a copy from pageable memory waits until the stream has drained,
     so the host would wait for the batch before. `pin_memory` takes its
     buffer from PyTorch's caching host allocator, which does not reuse it
-    until the copy out of it has run."""
+    until the copy out of it has run.
+
+    Each call opens the model's cache of CUDA graphs (`utils/graphs.py`):
+    on a card in eval mode the inference's segments run eagerly on the first
+    call of an input signature (the images' shape and dtype, which of
+    `gt_geo` and `init_cam` are given and theirs, the output size), are
+    captured on the second and replayed after that. The cache lives on the
+    model, so the graphs outlive this step; `model.train()` drops them. So a returned
+    device tensor may be a graph's static buffer: it holds its value until
+    the next call of an eval step of this model with the same signature,
+    which overwrites it. Fetch (`engine/test.py:_fetch`, enqueued before the
+    next call on the same stream) or clone what must outlive that call."""
     dev = next(model.parameters()).device
 
     def upload(t: torch.Tensor) -> torch.Tensor:
@@ -133,8 +145,11 @@ def make_eval_step(model: PlaneTRNopeSAC, out_h: int = 480, out_w: int = 640,
 
     def eval_step(image0: torch.Tensor, image1: torch.Tensor, gt_geo=None, init_cam=None):
         with torch.inference_mode():
-            return model.inference(norm(image0), norm(image1), out_h=out_h, out_w=out_w,
-                                   gt_geo=to_dev(gt_geo), init_cam=to_dev(init_cam))
+            x0, x1 = norm(image0), norm(image1)
+            gt_geo, init_cam = to_dev(gt_geo), to_dev(init_cam)
+            with graphs.opened(model, x0, x1, gt_geo, init_cam, out_h, out_w):
+                return model.inference(x0, x1, out_h=out_h, out_w=out_w, gt_geo=gt_geo,
+                                       init_cam=init_cam)
 
     return eval_step
 

@@ -26,7 +26,8 @@ step. Then three passes of `--batches` batches each:
      span's host time per batch, in all and less its child spans'
      (`stage_host_ms_per_batch`, `stage_self_ms_per_batch`), and the
      counters per batch (`counts_per_batch`: the batch copy's bytes and
-     copies);
+     copies; the eval step's segments replayed as CUDA graphs, captured,
+     and run eagerly, `eval.graph_*`: in a warm split the replays alone);
   2. under torch.profiler, where each span is a `nopesac:` range: the
      device time of the operations launched inside each range (a host call
      that starts inside it shares its id with the device operation it
@@ -199,29 +200,48 @@ def host_waits(events, n_batches: int, names=WAIT_CALLS, top: int = 15) -> dict:
     return out
 
 
+def _is_runtime(name: str) -> bool:
+    """A CUDA runtime or driver call (cudaLaunchKernel, cudaGraphLaunch,
+    cuLaunchKernel, ...), whose id is the correlation id of what it launched."""
+    return name.startswith("cuda") or (name.startswith("cu") and name[2:3].isupper())
+
+
 def device_by_stage(events, n_batches: int, top: int = 15) -> Dict:
     """A profile's device side, ms per batch: busy (the union of the
     device's operations), each span's device time (the operations launched
     inside it, its child spans' included) and the idle gaps by the innermost
     span at their midpoints (the gaps add up to the profile's span less
-    busy), and the operations that take the most time."""
-    device, host = [], []
+    busy), and the operations that take the most time.
+
+    A device operation's id is the correlation id of the runtime call that
+    launched it, and its linked id that of the op around the call. An op's
+    own id counts ops, another sequence: so an operation is matched by id to
+    the runtime calls alone, and by linked id to the ops. (Matched to both,
+    an op's id equal to a graph launch's would take in every kernel of the
+    graph.)"""
+    device, calls, host_ops = [], [], []
     for e in events:
         if _is_device(e):
             device.append((e.time_range.start, e.time_range.end, e.id,
                            getattr(e, "linked_correlation_id", 0) or 0, e.name))
         elif e.device_type == torch.autograd.DeviceType.CPU and not e.name.startswith(SPAN):
-            host.append((e.time_range.start, e.id))
+            (calls if _is_runtime(e.name) else host_ops).append((e.time_range.start, e.id))
     ranges = _ranges(events)
-    host.sort()
-    starts = [t for t, _ in host]
-    ids: Dict[str, set] = defaultdict(set)
-    for s, e, name in ranges:
-        ids[name].update(i for _, i in host[bisect.bisect_left(starts, s):
-                                            bisect.bisect_right(starts, e)])
+
+    def inside(host):
+        host.sort()
+        starts = [t for t, _ in host]
+        got: Dict[str, set] = defaultdict(set)
+        for s, e, name in ranges:
+            got[name].update(i for _, i in host[bisect.bisect_left(starts, s):
+                                                bisect.bisect_right(starts, e)])
+        return got
+
+    call_ids, op_ids = inside(calls), inside(host_ops)
     per = lambda us: us / 1e3 / n_batches
-    stage = {name: per(sum(e - s for s, e, i, li, _ in device if i in got or (li and li in got)))
-             for name, got in ids.items()}
+    stage = {name: per(sum(e - s for s, e, i, li, _ in device
+                           if i in call_ids[name] or (li and li in op_ids[name])))
+             for name in set(call_ids) | set(op_ids)}
     busy = _union([(s, e) for s, e, *_ in device])
     # the idle gaps between the device's operations, and before the first and
     # after the last within the profile's first and last events

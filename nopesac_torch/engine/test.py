@@ -263,6 +263,8 @@ class EvalRunner:
                 if sp_topcam is not None:
                     init_cam = sp_topcam_of(sp_topcam, pad_chunk)
             with trace.span("eval.step"):
+                # on a card the outputs are the step's graph buffers: their copy
+                # to the host is enqueued before the next batch's replay
                 out = _fetch(eval_step(*images, gt_geo=gt_geo, init_cam=init_cam))
                 done = None
                 if dev.type == "cuda":

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from ..core.geometry import normalize, warp_planes_identity, warp_planes_to_global
 from ..core import sinkhorn as plain_sinkhorn
 from ..ops.sinkhorn import log_optimal_transport_masked
-from ..utils import trace
+from ..utils import graphs, trace
 from .transformer import LocalFeatureGNN
 
 
@@ -73,7 +73,26 @@ class MatchingHead(nn.Module):
     def forward(self, plane_app1, plane_app2, matcher_input_cam: Optional[torch.Tensor],
                 params1, params2, row_masks=None, col_masks=None, training: bool = False):
         """plane_app1/2 [B, N, 256]; matcher_input_cam [B, 7] = (tran, quat)
-        or None; params1/2 [B, N, 3]; row/col masks [B, N] bool."""
+        or None; params1/2 [B, N, 3]; row/col masks [B, N] bool. Inside an
+        open eval step the work before, inside and after the GNN's span is
+        one segment of `utils/graphs.py` each, and the Sinkhorn (B2) eager."""
+        plane_app1, plane_app2, normal_dist, offset_dist = graphs.segment(
+            "matching_prior", self._prior, plane_app1, plane_app2, matcher_input_cam, params1,
+            params2)
+        with trace.span("model.matching_gnn"):
+            desc1, desc2 = graphs.segment("matching_gnn", self._descriptors, plane_app1,
+                                          plane_app2, row_masks, col_masks)
+        log_scores = graphs.segment("matching_scores", self._affinity, desc1, desc2,
+                                    normal_dist, offset_dist)
+        solve = (plain_sinkhorn.log_optimal_transport_masked if training
+                 else log_optimal_transport_masked)
+        with trace.span("model.sinkhorn"):
+            return solve(log_scores, self.bin_score, self.sinkhorn_iterations,
+                         row_masks=row_masks, col_masks=col_masks)
+
+    def _prior(self, plane_app1, plane_app2, matcher_input_cam, params1, params2):
+        """The query features widened to f32 and the geometric distances
+        [B, N1, N2] (zeros without a camera)."""
         plane_app1, plane_app2 = plane_app1.to(torch.float32), plane_app2.to(torch.float32)
         b, n1, _ = plane_app1.shape
         n2 = plane_app2.shape[1]
@@ -85,19 +104,15 @@ class MatchingHead(nn.Module):
                 cam = matcher_input_cam.to(torch.float32)
                 normal_dist, offset_dist = geometric_distances(params1, params2, cam[:, :3],
                                                                cam[:, 3:])
+        return plane_app1, plane_app2, normal_dist, offset_dist
 
-        with trace.span("model.matching_gnn"):
-            desc1, desc2 = self.gnn(self._proj(self.planeApp_proj, plane_app1),
-                                    self._proj(self.planeApp_proj, plane_app2),
-                                    row_masks, col_masks)
-            desc1 = self._proj(self.planeDesc_proj, desc1)
-            desc2 = self._proj(self.planeDesc_proj, desc2)
+    def _descriptors(self, plane_app1, plane_app2, row_masks, col_masks):
+        desc1, desc2 = self.gnn(self._proj(self.planeApp_proj, plane_app1),
+                                self._proj(self.planeApp_proj, plane_app2),
+                                row_masks, col_masks)
+        return self._proj(self.planeDesc_proj, desc1), self._proj(self.planeDesc_proj, desc2)
 
+    def _affinity(self, desc1, desc2, normal_dist, offset_dist):
         log_scores = torch.matmul(desc1, desc2.transpose(1, 2)) / math.sqrt(self.d_model)
         log_scores = log_scores - offset_dist / self.offset_multiplier
-        log_scores = log_scores - normal_dist / self.normal_multiplier
-        solve = (plain_sinkhorn.log_optimal_transport_masked if training
-                 else log_optimal_transport_masked)
-        with trace.span("model.sinkhorn"):
-            return solve(log_scores, self.bin_score, self.sinkhorn_iterations,
-                         row_masks=row_masks, col_masks=col_masks)
+        return log_scores - normal_dist / self.normal_multiplier

@@ -19,6 +19,13 @@ in place of the PixelCameraHead's).
 place each part in its dtype as the JAX model does (the backbone, the plane
 head's pixel path and the camera head follow them; the transformer, the
 query-side heads and the matching head stay f32); parameters stay f32.
+
+Inside an open eval step (`engine/predict.py:make_eval_step`) the inference
+runs as segments of `utils/graphs.py`, CUDA graphs replayed per input
+signature, between the calls that stay eager: kernels B1 and B2, the
+backbone's and the matching head's forward, and the program's spans, each of
+which wraps the same work as before. `train()` and `_apply` (a move or a
+cast) drop the model's graphs.
 """
 from __future__ import annotations
 
@@ -37,7 +44,7 @@ from ..losses.criterion import depth_loss_siamese, detection_losses_siamese, mat
 from ..losses.matching import build_pred_corr_matrix, intersect_with_valid, matching_nll_loss
 from ..ops.select import fused_select_maps
 from ..parallel.dist import world_size
-from ..utils import trace
+from ..utils import graphs, trace
 from .camera_head import (
     PlaneCameraHead,
     build_geo_sequence,
@@ -140,13 +147,22 @@ class PlaneTRNopeSAC(nn.Module):
     def camera_head(self) -> PlaneCameraHead:
         return self.camera_head_list[0]
 
+    def train(self, mode: bool = True):
+        if mode:
+            graphs.drop(self)
+        return super().train(mode)
+
+    def _apply(self, *args, **kwargs):
+        graphs.drop(self)
+        return super()._apply(*args, **kwargs)
+
     def detect(self, images, gen: Optional[torch.Generator] = None):
         """Backbone + plane head; images [B, 3, H, W] normalised. `gen`
         drives the transformer's dropout (None: no dropout)."""
         with trace.span("model.backbone"):
             feats = self.backbone(images)
         with trace.span("model.plane_head"):
-            outputs, query_feat = self.sem_seg_head(feats, gen)
+            outputs, query_feat = graphs.segment("plane_head", self.sem_seg_head, feats, gen)
         return feats, outputs, query_feat
 
     def bn_stats_forward(self, images0, images1, gen: Optional[torch.Generator] = None) -> None:
@@ -310,10 +326,19 @@ class PlaneTRNopeSAC(nn.Module):
         gated mask is empty); all-filtered (the max-overlap valid query with
         the ungated argmax mask, ties to the first index).
         """
-        logits = outputs["pred_logits"]  # [B, NQ, 2]
-        params = outputs["pred_params"]  # [B, NQ, 3]
-        b, nq, _ = logits.shape
+        gates = graphs.segment("select_gates", self._select_gates, outputs["pred_logits"],
+                               outputs["pred_mask_logits"])
+        # kernel B1: upsample + argmax over valid queries + per-query stats
+        seg_ids, max_scaled, stats = fused_select_maps(
+            gates["mask_prob"], gates["score"], gates["valid"], float(self.mask_prob_threshold),
+            out_h, out_w)
+        return graphs.segment("select_filter", self._select_filter, gates, outputs["pred_params"],
+                              seg_ids, max_scaled, stats)
 
+    def _select_gates(self, logits, mask_logits):
+        """`select_planes` before B1: the plane scores [B, NQ], the valid
+        queries with the zero-detection fallback, and the mask probabilities."""
+        nq = logits.shape[1]
         prob = torch.softmax(logits, dim=-1)
         score = prob.amax(dim=-1)  # [B, NQ]
         labels = torch.argmax(prob, dim=-1)
@@ -324,11 +349,14 @@ class PlaneTRNopeSAC(nn.Module):
         fallback = F.one_hot(torch.argmax(prob[..., 0], dim=1), nq).bool()
         valid = torch.where(any_valid, label_mask, fallback)
         score = torch.where(valid & ~label_mask, prob[..., 0], score)
+        return {"score": score, "valid": valid, "any_valid": any_valid,
+                "mask_prob": torch.sigmoid(mask_logits)}
 
-        # kernel B1: upsample + argmax over valid queries + per-query stats
-        seg_ids, max_scaled, stats = fused_select_maps(
-            torch.sigmoid(outputs["pred_mask_logits"]), score, valid,
-            float(self.mask_prob_threshold), out_h, out_w)
+    def _select_filter(self, gates, params, seg_ids, max_scaled, stats):
+        """`select_planes` after B1: the overlap filter, the gated masks and
+        the plane centers."""
+        nq = params.shape[1]
+        score, valid, any_valid = gates["score"], gates["valid"], gates["any_valid"]
         (cnt_gate, sumx_gate, sumy_gate,
          cnt_nogate, sumx_nogate, sumy_nogate, orig_cnt) = stats.unbind(dim=1)
 
@@ -410,36 +438,17 @@ class PlaneTRNopeSAC(nn.Module):
         the pose, normalised and sign-canonical, replaces the
         PixelCameraHead's, which does not run. It needs cam_rec_on: the AIM
         heads give the refinement its pose features."""
-        b = qf0.shape[0]
-        head = self.camera_head
-        dt, dev = head.compute_dtype(), qf0.device
         if init_cam is not None and not self.cam_rec_on:
             raise ValueError("init_cam (INFERENCE_SP_TOPCAM_ON) needs CAM_REC_ON: the given "
                              "pose has no PixelCameraHead features, so the AIM heads must "
                              "make them")
-        identity = torch.zeros((b, 4), dtype=dt, device=dev)
-        identity[:, 0] = 1.0
-        cameras = {"camera_zero": {"tran": torch.zeros((b, 3), dtype=dt, device=dev),
-                                   "rot": identity}}
         result = {}
-        if init_cam is not None:
-            init = None
-            init_rot = canonicalize_quat_sign(normalize(init_cam["rot"].to(dt), eps=1e-12))
-            init_tran = init_cam["tran"].to(dt)
-        else:
+        init = None
+        if init_cam is None:
             with trace.span("model.pixel_camera"):
-                init = head.pixel_camera(feats_cat)
-            init_rot = canonicalize_quat_sign(init["rot"])
-            init_tran = init["tran"]
-        cameras["camera_init"] = {"tran": init_tran, "rot": init_rot}
-
-        if self.cam_rec_on:
-            base_rot, base_rot_feat, _ = head.rot_rec(init_rot)
-            base_tran, base_tran_feat, _ = head.trans_rec(init_tran)
-            cameras["camera_initRec"] = {"tran": base_tran, "rot": base_rot}
-        else:
-            base_rot, base_rot_feat = init_rot, init["rot_feat"]
-            base_tran, base_tran_feat = init_tran, init["tran_feat"]
+                init = graphs.segment("pixel_camera", self.camera_head.pixel_camera, feats_cat)
+        cameras, base, matcher_cam = graphs.segment("camera_prior", self._camera_prior, init,
+                                                    init_cam)
 
         if not self.embedding_on:
             cameras["camera"] = cameras["camera_init"]
@@ -447,11 +456,11 @@ class PlaneTRNopeSAC(nn.Module):
             return result
 
         # ---- plane matching with the reconstructed pose as geometric prior
-        matcher_cam = torch.cat([base_tran, base_rot], dim=-1)  # [B, 7]
         with trace.span("model.matching_head"):
             log_scores = self.matching_head(qf0, qf1, matcher_cam, params0, params1,
                                             row_masks=valid0, col_masks=valid1)
-        assignment = mutual_max_assignment(log_scores, self.matching_score_threshold)
+        assignment = graphs.segment("assignment", mutual_max_assignment, log_scores,
+                                    self.matching_score_threshold)
         result["log_scores"] = log_scores
         result["assignment_beforeRef"] = assignment
 
@@ -463,25 +472,82 @@ class PlaneTRNopeSAC(nn.Module):
 
         # ---- NOPE-SAC refinement
         with trace.span("model.refine"):
-            if gt_geo is not None:
-                geo_local, seq_valid, num_matches = build_gt_geo_sequence(
-                    gt_geo["params0"], gt_geo["params1"], gt_geo["corr_idx1"],
-                    gt_geo["corr_idx2"], gt_geo["corr_valid"])
-                geo_local = geo_local.to(dt)
-            else:
-                geo_local, seq_valid, num_matches = build_geo_sequence(
-                    params0, params1, assignment, self.num_queries)
-            geo_global = warp_geo_sequence(geo_local, base_tran, base_rot)
-            sig_seq = compute_sig_seq(geo_local, base_tran, base_rot)
-            ref = head.refine(base_tran_feat, base_rot_feat, base_tran, base_rot,
-                              geo_local, seq_valid, sig_seq, geo_global)
+            ref, num_matches = graphs.segment("refine", self._refine, base, params0, params1,
+                                              assignment, gt_geo)
+        final, gated = graphs.segment("pose", self._final_pose, ref, num_matches, base,
+                                      params0, params1, assignment)
+        cameras.update(final)
+        result["assignment"] = gated
+        result["cameras"] = cameras
+        result["camera_onePP"] = {
+            "tran": ref["trans_all"], "rot": ref["rots_all"], "hyp_valid": ref["hyp_valid"],
+            "score_rot": ref["score_rot"], "score_trans": ref["score_trans"],
+        }
+        result["num_matches"] = num_matches
+        return result
 
+    def _camera_prior(self, init, init_cam):
+        """The initial pose (the PixelCameraHead's `init`, or the given
+        `init_cam`), the AIM heads' pose and features on it, the camera dict
+        so far and the matching head's input camera [B, 7] (None without
+        matching). Returns (cameras, base, matcher_cam); base holds the
+        refinement's pose and features: tran, rot, tran_feat, rot_feat."""
+        head = self.camera_head
+        dt = head.compute_dtype()
+        if init_cam is not None:
+            init_rot = canonicalize_quat_sign(normalize(init_cam["rot"].to(dt), eps=1e-12))
+            init_tran = init_cam["tran"].to(dt)
+        else:
+            init_rot = canonicalize_quat_sign(init["rot"])
+            init_tran = init["tran"]
+        b, dev = init_tran.shape[0], init_tran.device
+        identity = torch.zeros((b, 4), dtype=dt, device=dev)
+        identity[:, 0] = 1.0
+        cameras = {"camera_zero": {"tran": torch.zeros((b, 3), dtype=dt, device=dev),
+                                   "rot": identity},
+                   "camera_init": {"tran": init_tran, "rot": init_rot}}
+        if self.cam_rec_on:
+            base_rot, base_rot_feat, _ = head.rot_rec(init_rot)
+            base_tran, base_tran_feat, _ = head.trans_rec(init_tran)
+            cameras["camera_initRec"] = {"tran": base_tran, "rot": base_rot}
+        else:
+            base_rot, base_rot_feat = init_rot, init["rot_feat"]
+            base_tran, base_tran_feat = init_tran, init["tran_feat"]
+        base = {"tran": base_tran, "rot": base_rot, "tran_feat": base_tran_feat,
+                "rot_feat": base_rot_feat}
+        matcher_cam = (torch.cat([base_tran, base_rot], dim=-1)  # [B, 7]
+                       if self.embedding_on else None)
+        return cameras, base, matcher_cam
+
+    def _refine(self, base, params0, params1, assignment, gt_geo):
+        """The matched-plane sequence (from the assignment, or from `gt_geo`),
+        warped by the base pose, through the refinement head; returns (its
+        dict, the number of matches [B])."""
+        if gt_geo is not None:
+            geo_local, seq_valid, num_matches = build_gt_geo_sequence(
+                gt_geo["params0"], gt_geo["params1"], gt_geo["corr_idx1"],
+                gt_geo["corr_idx2"], gt_geo["corr_valid"])
+            geo_local = geo_local.to(self.camera_head.compute_dtype())
+        else:
+            geo_local, seq_valid, num_matches = build_geo_sequence(
+                params0, params1, assignment, self.num_queries)
+        geo_global = warp_geo_sequence(geo_local, base["tran"], base["rot"])
+        sig_seq = compute_sig_seq(geo_local, base["tran"], base["rot"])
+        ref = self.camera_head.refine(base["tran_feat"], base["rot_feat"], base["tran"],
+                                      base["rot"], geo_local, seq_valid, sig_seq, geo_global)
+        return ref, num_matches
+
+    def _final_pose(self, ref, num_matches, base, params0, params1, assignment):
+        """The output pose of INFERENCE_OUT_CAM_TYPE with the m <= 1
+        fallbacks, and the assignment re-gated by pose consistency. Returns
+        ({camera_avgRef0, camera_softRef0, camera}, the gated assignment)."""
+        b = num_matches.shape[0]
         # m <= 1 fallbacks: m == 0 -> initial pose; m == 1 -> avg(excl) pose
         m = num_matches[:, None]
         rot_avg = torch.where(m > 1, ref["rot_avg_incl"], ref["rot_avg_excl"])
         tran_avg = torch.where(m > 1, ref["tran_avg_incl"], ref["tran_avg_excl"])
-        rot_avg = torch.where(m == 0, base_rot, rot_avg)
-        tran_avg = torch.where(m == 0, base_tran, tran_avg)
+        rot_avg = torch.where(m == 0, base["rot"], rot_avg)
+        tran_avg = torch.where(m == 0, base["tran"], tran_avg)
 
         kind = self.inference_out_cam_type
         if kind == "avg-all":
@@ -496,7 +562,7 @@ class PlaneTRNopeSAC(nn.Module):
             else:  # "min-cost"
                 ridx = torch.argmin(torch.where(hv, ref["normal_l2_sum"], float("inf")), dim=1)
                 tidx = torch.argmin(torch.where(hv, ref["l2_dist_sum"], float("inf")), dim=1)
-            rows = torch.arange(b, device=dev)
+            rows = torch.arange(b, device=num_matches.device)
             rot_f = ref["rots_all"][rows, ridx]
             tran_f = ref["trans_all"][rows, tidx]
 
@@ -505,8 +571,6 @@ class PlaneTRNopeSAC(nn.Module):
         # exact unit quaternions at inference (F.normalize semantics, eps 1e-12)
         rot_f = normalize(rot_f)
         rot_avg = normalize(rot_avg)
-        cameras["camera_avgRef0"] = {"tran": tran_avg, "rot": rot_avg}
-        cameras["camera_softRef0"] = {"tran": tran_f, "rot": rot_f}
 
         # sign flip before the pose-consistency re-gating of the assignment
         if self.cam_rec_on:
@@ -515,13 +579,7 @@ class PlaneTRNopeSAC(nn.Module):
             rot_for_gate = rot_f
         normal_dist, offset_dist = geometric_distances(params0, params1, tran_f, rot_for_gate)
         gate = (normal_dist < 45.0) & (torch.clamp(offset_dist, 1e-4, 10.0) < 1.0)
-        result["assignment"] = assignment * gate.to(assignment.dtype)
-
-        cameras["camera"] = {"tran": tran_f, "rot": rot_f}
-        result["cameras"] = cameras
-        result["camera_onePP"] = {
-            "tran": ref["trans_all"], "rot": ref["rots_all"], "hyp_valid": ref["hyp_valid"],
-            "score_rot": ref["score_rot"], "score_trans": ref["score_trans"],
-        }
-        result["num_matches"] = num_matches
-        return result
+        cameras = {"camera_avgRef0": {"tran": tran_avg, "rot": rot_avg},
+                   "camera_softRef0": {"tran": tran_f, "rot": rot_f},
+                   "camera": {"tran": tran_f, "rot": rot_f}}
+        return cameras, assignment * gate.to(assignment.dtype)

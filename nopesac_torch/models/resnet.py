@@ -16,7 +16,8 @@ residual trunk (block inputs and outputs, BN3's affine, the shortcut's BN,
 the add and the ReLU) stays f32. `remat` (MODEL.REMAT) checkpoints each
 block in train mode: only block boundaries are kept for the backward, which
 re-runs each block's forward once. The blocks hold FrozenBN and draw no
-random numbers, so the replay gives the same values."""
+random numbers, so the replay gives the same values. Inside an open eval
+step the forward is one segment of `utils/graphs.py` (a CUDA graph)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -27,6 +28,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.bottleneck import conv1x1_bn_act
+from ..utils import graphs
 from .layers import Cast, ConvNorm, FrozenBatchNorm2d, conv2d, set_compute_dtype
 
 STAGE_BLOCKS = (3, 4, 6, 3)  # bottleneck blocks of res2..res5
@@ -109,6 +111,9 @@ class ResNet(Cast, nn.Module):
         set_compute_dtype(self, dtype, train_dtype)
 
     def forward(self, x) -> Dict[str, torch.Tensor]:
+        return graphs.segment("backbone", self._stages, x)
+
+    def _stages(self, x) -> Dict[str, torch.Tensor]:
         x = self.stem(x).to(torch.float32 if self.training else self.eval_dtype)
         remat = self.remat and self.training and torch.is_grad_enabled()
         feats = {}

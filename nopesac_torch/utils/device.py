@@ -6,6 +6,8 @@ from typing import Dict, Union
 
 import torch
 
+from .graphs import on_replay
+
 DeviceLike = Union[str, torch.device, None]
 
 
@@ -45,12 +47,17 @@ def set_f32_parity() -> None:
 
 class LaunchCounters:
     """One integer per kernel, bumped by its wrapper where it launches the
-    CUDA kernel and nowhere else (the plain CPU path does not count)."""
+    CUDA kernel and nowhere else (the plain CPU path does not count). A
+    launch captured in a CUDA graph counts at each of the graph's replays
+    (`utils/graphs.py:on_replay`)."""
 
     def __init__(self, names):
         self._counts: Dict[str, int] = {n: 0 for n in names}
 
     def bump(self, name: str) -> None:
+        on_replay(lambda: self._add(name))
+
+    def _add(self, name: str) -> None:
         self._counts[name] += 1
 
     def reset(self) -> None:

@@ -15,13 +15,18 @@ import pytest
 import torch
 
 from nopesac_torch.config.config import get_cfg
+from nopesac_torch.data.synthetic import make_dataset
+from nopesac_torch.engine import test as entry
 from nopesac_torch.engine.predict import build_model_from_cfg, make_eval_step
 from nopesac_torch.engine.test import _fetch, _numpy
+from nopesac_torch.evaluation.evaluator import MP3DEvaluator
 from nopesac_torch.losses.hungarian import hungarian, hungarian_plain
 from nopesac_torch.losses.hungarian_cases import FAMILIES, SHAPES, cost_family
+from nopesac_torch.models import matching_head, nopesac
 from nopesac_torch.models.resnet import ResNet
 from nopesac_torch.ops import bottleneck, mask_loss, select, sinkhorn
 from nopesac_torch.ops.hungarian import hungarian_cuda
+from nopesac_torch.utils import graphs, trace
 from nopesac_torch.utils.device import LAUNCHES
 
 pytestmark = pytest.mark.gpu
@@ -551,3 +556,224 @@ def test_eval_step_makes_the_host_wait_nowhere(cuda, ablations):
     assert list(_leaves(got)) and "camera_onePP" in got
     for a, b in zip(_leaves(got), _leaves(want)):
         assert a.dtype == b.dtype and np.array_equal(a, b, equal_nan=True)
+
+
+# ------------------------------------------- the eval step's CUDA graphs
+def _eval_cfg(*opts):
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(os.path.dirname(__file__), "..", "configs",
+                                     "inference_mp3d.yaml"))
+    cfg.merge_from_list(list(opts))
+    return cfg
+
+
+def _host_batches(cfg, n, seed=11):
+    h, w = cfg.INPUT.IMAGE_SIZE
+    rng = np.random.default_rng(seed)
+    return [[torch.from_numpy(rng.integers(0, 256, (cfg.TEST.IMS_PER_BATCH, h, w, 3),
+                                           dtype=np.uint8)) for _ in range(2)]
+            for _ in range(n)]
+
+
+def _host(out):
+    """The step's outputs on the host, waited for."""
+    out = _fetch(out)
+    torch.cuda.synchronize()
+    return _numpy(out)
+
+
+def _assert_same(got, want):
+    got, want = list(_leaves(got)), list(_leaves(want))
+    assert got and len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and np.array_equal(a, b, equal_nan=True)
+
+
+def _deep_equal(a, b) -> bool:
+    """Equal values, containers alike, NaN equal to NaN."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and list(a) == list(b) and all(
+            _deep_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and all(map(_deep_equal, a, b))
+    if isinstance(a, torch.Tensor):
+        a, b = a.numpy(), b.numpy()
+    if isinstance(a, (np.ndarray, np.generic, float)):
+        return np.shape(a) == np.shape(b) and np.array_equal(a, b, equal_nan=True)
+    return a == b
+
+
+def _eager(step, model, batch):
+    """The step on a batch as its signature's first call: eager."""
+    graphs.drop(model)
+    return _host(step(*batch))
+
+
+def _graph_counts():
+    return {k: v for k, v in trace.snapshot()["counts"].items() if k.startswith("eval.graph_")}
+
+
+@pytest.mark.parametrize("dtype,fuse_tail", [("float32", False), ("bfloat16", True)])
+def test_eval_step_replay_is_bit_equal_to_its_eager_run(cuda, dtype, fuse_tail):
+    """Three batches of distinct images at B = 4, 480x640: the first call
+    of the signature runs eagerly, the second captures, the third and a
+    repeat of the first replay; each is bit-equal to the eager step on its
+    batch. With bf16 and `fuse_tail`, B4's launches are inside the
+    backbone's graph, and count at each of its replays."""
+    cfg = _eval_cfg("MODEL.COMPUTE_DTYPE", dtype)
+    h, w = cfg.INPUT.IMAGE_SIZE
+    model = build_model_from_cfg(cfg, device=cuda, seed=0, fuse_tail=fuse_tail)
+    step = make_eval_step(model, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
+    batches = _host_batches(cfg, 3)
+    want = [_eager(step, model, b) for b in batches]
+    graphs.drop(model)
+    trace.reset()
+    trace.enable()
+    before = LAUNCHES.snapshot()
+    try:
+        got = [_host(step(*b)) for b in batches + batches[:1]]
+    finally:
+        trace.disable()
+    launched = {n: c - before[n] for n, c in LAUNCHES.snapshot().items() if c != before[n]}
+    assert launched == {"select_maps": 4, "sinkhorn": 4,
+                        **({"bottleneck_tail": 4 * 24} if fuse_tail else {})}
+    segments = len(graphs.cache_of(model))
+    assert segments == 12
+    assert _graph_counts() == {"eval.graph_eager": segments, "eval.graph_captures": segments,
+                               "eval.graph_replays": 2 * segments}
+    for g, wnt in zip(got, want + want[:1]):
+        _assert_same(g, wnt)
+
+
+def test_eval_entry_point_with_graphs_gives_what_it_gives_eagerly(cuda):
+    """`EvalRunner.test` over a split of 4 batches, with the graphs, and with
+    the cache dropped before every call (every call eager): the same
+    inference dicts reach the postprocess, and the same records and metrics
+    come out. An output buffer that a later replay overwrote before its
+    fetch would differ here."""
+    cfg = _eval_cfg()
+    h, w = cfg.INPUT.IMAGE_SIZE
+    bs = int(cfg.TEST.IMS_PER_BATCH)
+    model = build_model_from_cfg(cfg, device=cuda, seed=0)
+    split = make_dataset(4 * bs - 1, n_planes=12, seed=5, h=h, w=w)  # a padded tail batch
+    post_fn, process_fn, make_fn = entry.postprocess_batch, MP3DEvaluator.process, entry.make_eval_step
+
+    def run(eager):
+        outs, records = [], []
+
+        def postprocess_batch(out, metas, **kwargs):
+            outs.append(out)
+            return post_fn(out, metas, **kwargs)
+
+        def process(self, inputs, outputs):
+            process_fn(self, inputs, outputs)
+            records.extend(self._predictions[-len(inputs):])
+
+        def make_eval_step_eager(m, *args, **kwargs):
+            step = make_fn(m, *args, **kwargs)
+
+            def eager_step(*a, **k):
+                graphs.drop(m)
+                return step(*a, **k)
+            return eager_step
+
+        entry.postprocess_batch, MP3DEvaluator.process = postprocess_batch, process
+        if eager:
+            entry.make_eval_step = make_eval_step_eager
+        try:
+            results = entry.EvalRunner(cfg, model).test(split)
+        finally:
+            entry.postprocess_batch, MP3DEvaluator.process = post_fn, process_fn
+            entry.make_eval_step = make_fn
+        return outs, records, results
+
+    graphs.drop(model)
+    ref = run(eager=True)
+    graphs.drop(model)
+    run(eager=False)  # the signature's eager call and capture
+    got = run(eager=False)
+    assert len(graphs.cache_of(model)) == 12 and len(got[0]) == 4
+    for a, b in zip(got[0], ref[0]):
+        _assert_same(a, b)
+    assert len(got[1]) == 4 * bs - 1 and _deep_equal(got[1], ref[1])
+    assert _deep_equal(dict(got[2]), dict(ref[2]))
+
+
+def test_eval_step_replay_reads_weights_changed_in_place(cuda):
+    cfg = _eval_cfg()
+    h, w = cfg.INPUT.IMAGE_SIZE
+    model = build_model_from_cfg(cfg, device=cuda, seed=0)
+    step = make_eval_step(model, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
+    batch = _host_batches(cfg, 1)[0]
+    for _ in range(2):
+        before = _host(step(*batch))
+    with torch.no_grad():  # the plane head's and the camera head's last layers
+        model.sem_seg_head.plane_param.layers[-1].bias.add_(0.05)
+        model.camera_head.trans.bias.add_(0.1)
+    graphed = _host(step(*batch))
+    assert len(graphs.cache_of(model)) == 12
+    want = _eager(step, model, batch)
+    _assert_same(graphed, want)
+    assert not np.array_equal(graphed["cameras"]["camera_init"]["tran"],
+                              before["cameras"]["camera_init"]["tran"])
+
+
+def test_warm_replayed_eval_step_makes_the_host_wait_nowhere(cuda):
+    cfg = _eval_cfg()
+    h, w = cfg.INPUT.IMAGE_SIZE
+    model = build_model_from_cfg(cfg, device=cuda, seed=0)
+    step = make_eval_step(model, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
+    batches = _host_batches(cfg, 3)
+    want = _eager(step, model, batches[2])
+    for b in batches[:2]:
+        _host(step(*b))
+    trace.reset()
+    trace.enable()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = _fetch(step(*batches[2]))
+        done = torch.cuda.Event()
+        done.record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        trace.disable()
+    done.synchronize()
+    assert _graph_counts() == {"eval.graph_replays": 12}
+    _assert_same(_numpy(out), want)
+
+
+def test_graphed_eval_step_calls_each_wrapped_name_once_per_batch(cuda):
+    """The calls that a benchmark wraps (the backbone's and the matching
+    head's forward, B1 and B2 by their module names) stay outside the
+    graphs: after the capture each is made once per batch."""
+    cfg = _eval_cfg()
+    h, w = cfg.INPUT.IMAGE_SIZE
+    model = build_model_from_cfg(cfg, device=cuda, seed=0)
+    step = make_eval_step(model, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
+    calls, undo = {}, []
+
+    def wrap(name, obj, attr):
+        fn = getattr(obj, attr)
+
+        def counted(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        setattr(obj, attr, counted)
+        undo.append(lambda: setattr(obj, attr, fn))
+
+    wrap("backbone", model.backbone, "forward")
+    wrap("matching_head", model.matching_head, "forward")
+    wrap("select", nopesac, "fused_select_maps")
+    wrap("sinkhorn", matching_head, "log_optimal_transport_masked")
+    try:
+        batches = _host_batches(cfg, 5)
+        for b in batches[:2]:
+            _host(step(*b))
+        calls.clear()
+        for b in batches[2:]:
+            _host(step(*b))
+    finally:
+        for u in undo:
+            u()
+    assert len(graphs.cache_of(model)) == 12
+    assert calls == dict.fromkeys(("backbone", "matching_head", "select", "sinkhorn"), 3)

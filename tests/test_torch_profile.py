@@ -4,8 +4,8 @@ each span the device time of the operations launched inside it and the idle
 gaps whose midpoints it holds innermost. Both match by time, so a call on
 another thread falls in the main thread's open span. (The CPU has no device
 operations and none of the waiting CUDA runtime calls: CPU ops stand in for
-the calls, and device operations with the ids of chosen CPU ops, at chosen
-times, for the card's.)"""
+the calls, and device operations linked to chosen CPU ops, at chosen times,
+for the card's; a runtime call is a stand-in event of its own.)"""
 import os
 import threading
 from types import SimpleNamespace
@@ -63,11 +63,39 @@ def _two_thread_profile():
     return events, first
 
 
-def _device_op(start, end, launched_by, name="kernel"):
+def _device_op(start, end, launched_by, name="kernel", correlation=-1):
+    """A device operation launched inside the op `launched_by` (its linked
+    id), by the runtime call of id `correlation`."""
     return SimpleNamespace(device_type=torch.autograd.DeviceType.CUDA, name=name,
                            is_user_annotation=False,
                            time_range=SimpleNamespace(start=start, end=end),
-                           id=launched_by.id, linked_correlation_id=0)
+                           id=correlation, linked_correlation_id=launched_by.id)
+
+
+def _host_event(name, start, end, event_id):
+    return SimpleNamespace(device_type=torch.autograd.DeviceType.CPU, name=name,
+                           is_user_annotation=False,
+                           time_range=SimpleNamespace(start=start, end=end), id=event_id)
+
+
+def test_device_by_stage_matches_launches_and_ops_each_in_their_own_ids():
+    """A device operation's id is its runtime call's correlation id, and an
+    op's id counts ops: the two sequences meet. A graph launch in one span
+    takes all its kernels there, though an op in another span has its id."""
+    events = [_host_event(SPAN + "backbone", 0, 100, 1), _host_event(SPAN + "select", 200, 300, 2),
+              _host_event("cudaGraphLaunch", 10, 20, 314),
+              _host_event("aten::empty", 210, 211, 314), _host_event("aten::to", 220, 221, 51),
+              _host_event("cudaLaunchKernel", 230, 240, 246)]
+    kernel = lambda s, e, i, li=0: SimpleNamespace(
+        device_type=torch.autograd.DeviceType.CUDA, name="k", is_user_annotation=False,
+        time_range=SimpleNamespace(start=s, end=e), id=i, linked_correlation_id=li)
+    graph = [kernel(400 + 10 * k, 405 + 10 * k, 314) for k in range(45)]
+    b1 = kernel(900, 980, 246)
+    copy = kernel(1000, 1001, 51)  # launched by runtime call 51, elsewhere
+    linked = kernel(1100, 1102, 7, li=51)  # launched inside the op aten::to
+    got = device_by_stage(events + graph + [b1, copy, linked], n_batches=1)
+    assert got["stage_device_ms_per_batch"] == pytest.approx(
+        {"backbone": 45 * 5 / 1e3, "select": (80 + 2) / 1e3})
 
 
 def test_device_by_stage_by_time_across_threads():
