@@ -6,16 +6,17 @@
 Phases, in order; any failure exits non-zero before the last line:
   1. device: name, capability (>= 9.0) and nvidia-smi's name and power limit;
   2. build: every `nopesac_torch/ops/csrc/*.cu` with nvcc, in parallel;
-  3. B1 (select_maps) at the main-path shapes, kernel against its plain
-     PyTorch version: seg, max and the counts bit-equal, sums to rtol 1e-5,
-     two runs bit-equal, the vec variant; its registers, shared memory,
-     spills and blocks per SM; one device kernel per call (torch.profiler);
+  3. B1 (select_maps) at the main-path shapes, held to its plain PyTorch
+     version by `nopesac_torch/utils/kernel_checks.py` (the card tests'
+     rules) in its vec variant; its registers, shared memory, spills and
+     blocks per SM; one device kernel per call (torch.profiler); the kernel
+     and its plain version timed;
   4. B2 (sinkhorn) at [4, 50, 50], 200 iterations, masked, from the scores
-     to the log coupling: kernel against its plain version, atol 1e-4 where
-     |ref| < 1e4, two runs bit-equal, the register variant, one device
-     kernel per call; timed from scores to output, the kernel's own device
-     time beside it, and an estimate of its dependency floor (assumed
-     latencies, not measured; printed, not in the kernels line);
+     to the log coupling: held to its plain version by the same rules in
+     its register variant; one device kernel per call; timed from scores to
+     output, the kernel's own device time beside it, its plain version, and
+     an estimate of its dependency floor (assumed latencies, not measured;
+     printed, not in the kernels line);
   5. main path: the eval step built from configs/inference_mp3d.yaml with
      seeded random weights, a warm-up batch, then 3 batches of 4 pairs of
      480x640 uint8 images; output shapes, dtypes and finiteness are checked
@@ -27,16 +28,13 @@ Phases, in order; any failure exits non-zero before the last line:
      permutation of view 0 (the regime a trained model gives: overlap
      filter, several valid queries, more than one match per pair), on the
      card against the CPU; and their time against the main path's regime;
-  7. reference: the same eval step at 96x128 on the card (through the
-     kernels) against the CPU (through their plain versions);
   8. B3 (mask_loss_fwd, mask_loss_bwd) at one supervision level of the train
      step: [32, 50, 120, 160] logits, [32, 50, 480, 640] uint8 masks, 12
-     matched queries per view; kernel against its plain version: sums within
-     rtol 1e-4, d src within 1e-4 of max |d src|, exact zeros for unmatched
-     queries, and an all-unmatched batch; the same with bf16 logits (sums
-     within rtol 1e-4, d src within one bf16 ulp, 2^-7 max |d src|), timed
-     beside the f32 kernels; each kernel's registers, shared memory, spill
-     bytes and resident blocks per SM (cudaFuncGetAttributes);
+     matched queries per view: held to the plain version by the same rules
+     with f32 and with bf16 logits, and with no query matched; each
+     kernel's registers, shared memory, spill bytes and resident blocks per
+     SM (cudaFuncGetAttributes); the kernels and their plain versions timed
+     with f32 and with bf16 logits;
   9. train path: the train step of configs/train_mp3d_step3.yaml (f32 and
      MODEL.REMAT off, 16 pairs of 480x640, seeded random weights) on
      synthetic pairs of 12
@@ -53,24 +51,23 @@ Phases, in order; any failure exits non-zero before the last line:
      after the AdamW step within 1e-5 relative (norm over the model);
  11. B4 (bottleneck_tail) at the eight shapes of the fused-tail eval path
      (8 images of 480x640: res2..res5, conv1 Cin -> Cout/4 with ReLU, conv3
-     Cout/4 -> Cout with the residual and ReLU), f32, kernel against its
-     plain version within 1e-5 of max |ref|; bf16 at the same eight shapes
-     and at the JAX test's (B 2, P 300, 64 -> 256, with and without residual
-     and ReLU), within one bf16 ulp of it (2^-7 |ref| + 1e-6), its bound at
-     bf16 bytes and the dense bf16 tensor-core rate; both timed beside the
-     unfused sequence the backbone runs without B4 in that dtype (cuDNN
-     1x1 conv, then the ATen affine, add and ReLU); every f32 eval shape must
-     take the vec variant and every bf16 one (and the JAX test's) the wgmma
-     variant (`ops/csrc/bottleneck_wgmma.cu`), two bf16 runs bit-equal, the
-     bf16 eval shapes also within one ulp of the exact (f64) product; the
-     config (BM, BN, X's load path, Cin split, blocks) is printed per shape
-     with each variant's registers, shared memory and spills, and the HGMMA
-     count of the wgmma library's SASS (cuobjdump -sass), which must be > 0;
+     Cout/4 -> Cout with the residual and ReLU), in f32 and in bf16 (its
+     bound at bf16 bytes and the dense bf16 tensor-core rate), each held to
+     its plain version by the same rules (bf16 also two runs bit-equal) and timed
+     beside its plain version and the unfused sequence the backbone runs
+     without B4 in that dtype (cuDNN 1x1 conv, then the ATen affine, add and
+     ReLU); every f32 eval shape must take the vec variant and every bf16
+     one the wgmma variant (`ops/csrc/bottleneck_wgmma.cu`), whose walk
+     must span the blocks the card holds at once; the config (BM, BN, X's
+     load path, Cin split, blocks) is printed per shape with each variant's
+     registers, shared memory and spills, and the HGMMA count of the wgmma
+     library's SASS (cuobjdump -sass), which must be > 0; the bf16
+     wrapper's host time with an f32 and with a bf16 weight;
  12. fused-tail eval path: the phase-5 model and batches with
      `fuse_tail=True`: B4's counter rises by exactly 24 per batch (12
      identity blocks, two calls each), res2..res5 match the unfused backbone
-     within 1e-4 of max |ref|, the outputs match phase 5's at the limits of
-     phases 6 and 7, and the two eval steps are timed in alternating rounds;
+     within 1e-4 of max |ref|, the outputs match phase 5's at phase 6's
+     limits, and the two eval steps are timed in alternating rounds;
  13. the evaluation entry point (`engine/test.py`) at full width on 16
      synthetic pairs of 12 planes per view from the port's generator,
      inference_mp3d.yaml with the fused-tail backbone and
@@ -112,11 +109,7 @@ Phases, in order; any failure exits non-zero before the last line:
      steps: every loss finite, no skipped step, B3 3 f32-logit launches per
      step and no bf16-logit one (the model sends f32 logits), B1 and B2
      none; ms per step and peak memory, then again with REMAT off,
-     beside phase 9's f32 step; then one step of one pair at 96x128 on the
-     card against the CPU (both bf16, the CPU's Hungarian match injected
-     into the card's step) at tests/test_torch_bf16_train.py's loss and
-     gradient rules, with the card's own bf16-vs-f32 deviation in place of
-     JAX's (for the losses, the larger of the card's and the CPU's).
+     beside phase 9's f32 step.
  17. training and evaluation across ranks (`parallel/dist.py:launch`), after
      phase 14 with the parent's cached memory freed: A, one rank over NCCL,
      and B, two ranks over gloo on the one card (NCCL refuses two ranks on
@@ -151,7 +144,7 @@ Phases, in order; any failure exits non-zero before the last line:
      pickle's pose (normalised, w >= 0) under (b), depth0/depth1
      [4, 480, 640, 1] f32 under (c); (a) through the fused-tail backbone (B4
      24 times per batch), held to unfused (a); the three at 96x128 on the
-     card against the CPU at phase 7's limits, depth0/depth1 within 1e-4 of
+     card against the CPU at phase 6's limits, depth0/depth1 within 1e-4 of
      max |CPU|; `EvalRunner.test` with (a) and (c) over 8 pairs: B1 and B2
      once per batch, depth_l1_dist and the camera metrics finite; and with
      (b) through a pickle file;
@@ -213,9 +206,7 @@ Phases, in order; any failure exits non-zero before the last line:
      view): kernel against its plain version (on the card and on the CPU)
      bit for bit, two runs bit-equal, each GT plane matched once, the total
      cost within 1e-5 relative of scipy's optimum (`hungarian_host`);
-     bit-equal again on the seeded families of `losses/hungarian_cases.py`
-     (normal, tie-heavy integers, NG < NQ padded, NaN and +-inf) at
-     [96, 50] and [4, 127]; `match_planes_multi` under
+     `match_planes_multi` under
      torch.cuda.set_sync_debug_mode("error") (no host sync, one launch);
      the host syncs left in one train forward and backward and in the
      update, counted in "warn" mode by site; one device kernel per call
@@ -225,15 +216,21 @@ Phases, in order; any failure exits non-zero before the last line:
      device-to-host copy, scipy per problem and the match back), with its
      bound and an estimate of its dependency floor (assumed latencies, not
      measured; printed, not in the kernels line).
-Phases 11-13, 20, 15 and 18 run right after phase 7, while the eval model is
+Phases 11-13, 20, 15 and 18 run right after phase 6, while the eval model is
 on the card; phase 22 right after phase 9; phases 14, 16 and 19 run after
 phase 10, phase 17 after phase 14, phase 21 last.
-Phases 6, 7 and 12 hold the card to the CPU, or the fused path to the
+Phases 6 and 12 hold the card to the CPU, or the fused path to the
 unfused one, as the CPU is held to JAX in tests/test_torch_slice.py: valid
 planes equal, labels agree on >= 99.9% of pixels, log-scores within 1.5e-3
 and every camera within 1e-3; phase 10 does the same with the tolerances of
 tests/test_torch_train.py.
-Then one JSON line with every kernel's launches, error and times, and, last,
+The card holds each kernel to its plain version in tests/test_torch_gpu.py
+(`python -m pytest --noconftest -p no:cacheprovider -m gpu
+tests/test_torch_gpu.py`); this script times the kernels and checks what
+they launch. There is no phase 7: the eval step at 480x640 against the
+plain reference is the benchmark's (cardbench, cell eval_entry_bs4), as is
+the shipped bf16 train step (train_step3_bs16).
+Then one JSON line with every kernel's launches and times, and, last,
   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The launches of B1 and B2 are those of the eval path (phase 5), those of B3
 and H1 those of the train path (phase 9), those of B4 those of the fused-tail eval
@@ -323,12 +320,7 @@ HUNGARIAN_LATENCY = {"lds": 30, "shfl": 25, "alu": 4, "syncwarp": 20}
 B4_STAGES = (("res2", 120, 160, 256, 64, 2), ("res3", 60, 80, 512, 128, 3),
              ("res4", 30, 40, 1024, 256, 5), ("res5", 15, 20, 2048, 512, 2))
 B4_LAUNCHES = 2 * sum(s[-1] for s in B4_STAGES)  # 24 per eval batch
-B4_F32_TOL = 1e-5  # of max |ref|: f32 sums over Cin in another order
 QUEUE_CYCLES = 40_000_000  # the least sleep kernel before queued calls: ~20 ms at SM_CLOCK_HZ
-BF16_ULP = 2.0 ** -7
-# losses held at their decoder levels' bf16 noise where their own lies under
-# the floor (tests/test_torch_bf16_train.py:LEVEL_NOISE gives the reasons)
-LEVEL_NOISE = ("loss_ce", "loss_param_cos")
 ENTRY_PAIRS = 16
 TRAINER_PAIRS = 32       # the training split of phase 14
 TRAINER_TEST_PAIRS = 8   # its test split: two eval batches
@@ -529,32 +521,14 @@ def eval_path_calls(torch, dev):
                                                                       SINKHORN_ITERS, row, col)}
 
 
-def check_select(torch, dev):
+def time_select(torch, dev):
     from nopesac_torch.ops import select
+    from nopesac_torch.utils.kernel_checks import hold_select
     prob16, score, valid = select_case(torch, dev)
     b, nq, h, w = prob16.shape
     out_h, out_w, thr = 4 * h, 4 * w, 0.5
-    seg_k, mx_k, st_k = select.select_maps_cuda(prob16, score, valid, thr, out_h, out_w)
-    cfg = dict(select.last_config)
-    seg_p, mx_p, st_p = select.select_maps_plain(prob16.float(), score, valid, thr, out_h, out_w)
-    again = select.select_maps_cuda(prob16, score, valid, thr, out_h, out_w)
-    torch.cuda.synchronize()
-    n_seg = int((seg_k != seg_p).sum())
-    n_mx = int((mx_k != mx_p).sum())
-    err = float((mx_k - mx_p).abs().max())
-    counts = [0, 3, 6]
-    n_cnt = int((st_k[:, counts] != st_p[:, counts]).sum())
-    sums = [1, 2, 4, 5]
-    sum_ok = torch.allclose(st_k[:, sums], st_p[:, sums], rtol=1e-5, atol=0.0)
-    same = all(torch.equal(x, y) for x, y in zip((seg_k, mx_k, st_k), again))
-    print(f"[B1 select_maps] seg mismatches {n_seg}, max mismatches {n_mx} "
-          f"(max |diff| {err:.3e}), count mismatches {n_cnt}, sums within rtol 1e-5: {sum_ok}; "
-          f"all-invalid view labels all 0: {bool((seg_k[0] == 0).all())}; two runs bit-equal: "
-          f"{same}; variant {cfg}")
-    if (n_seg or n_mx or n_cnt or not sum_ok or not bool((seg_k[0] == 0).all()) or not same
-            or cfg["variant"] != "vec"):
-        raise SmokeFailure("B1 kernel disagrees with its plain version (or leaves its vec "
-                           "variant at the main-path shape)")
+    hold_select(prob16, score, valid, thr, out_h, out_w, "vec")
+    print("[B1 select_maps] kernel holds to its plain version (utils/kernel_checks.py), vec")
     print(f"[B1 select_maps] kernel: {select.kernel_attributes('vec', nq)} (cudaFuncGetAttributes)")
     call = eval_path_calls(torch, dev)["select_maps"]
     prof = device_events(torch, call)
@@ -573,10 +547,10 @@ def check_select(torch, dev):
     n_ops = b * nq * out_h * out_w * 6.25
     bms, by = bound_ms(n_bytes, n_ops)
     print(f"[B1 select_maps] kernel {ms:.4f} ms (unqueued {t['unqueued_ms']:.4f}, host "
-          f"{t['host_us']:.1f} us per call), plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
-          f"({by}: {n_bytes} B, {n_ops:.0f} flop)")
+          f"{t['host_us']:.1f} us per call; variant {select.last_config}), plain {plain_ms:.4f} "
+          f"ms, bound {bms:.4f} ms ({by}: {n_bytes} B, {n_ops:.0f} flop)")
     return {"name": "select_maps", "route": "cuda", "source": "nopesac_torch/ops/csrc/select.cu",
-            "replaces": "nopesac_tpu/ops/select_pallas.py:213", "max_abs_err": err,
+            "replaces": "nopesac_tpu/ops/select_pallas.py:213",
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
             "unqueued_ms": t["unqueued_ms"], "host_us": t["host_us"],
             "device_events_per_call": prof["per_call"]}
@@ -595,27 +569,13 @@ def sinkhorn_floor_ms(iters, group):
     return 2 * iters * cycles / SM_CLOCK_HZ * 1e3, cycles
 
 
-def check_sinkhorn(torch, dev):
+def time_sinkhorn(torch, dev):
     from nopesac_torch.ops import sinkhorn
+    from nopesac_torch.utils.kernel_checks import hold_sinkhorn
     scores, alpha, row, col = sinkhorn_case(torch, dev)
     (b, m, n), iters = scores.shape, SINKHORN_ITERS
-    got = sinkhorn.log_optimal_transport_masked(scores, alpha, iters, row, col)
-    cfg = dict(sinkhorn.last_config)
-    ref = sinkhorn.sinkhorn_plain(scores, alpha, iters, row, col)
-    again = sinkhorn.log_optimal_transport_masked(scores, alpha, iters, row, col)
-    torch.cuda.synchronize()
-    # 200 dependent iterations compound ulp differences of expf/logf and of
-    # the reduction order; the -1e5 masked band is left out
-    keep = ref.abs() < 1e4
-    err = float((got - ref).abs()[keep].max())
-    print(f"[B2 sinkhorn] max |kernel - plain| {err:.3e} over {int(keep.sum())} entries "
-          f"(finite: {bool(torch.isfinite(got).all())}); two runs bit-equal: "
-          f"{torch.equal(got, again)}; config {cfg}")
-    if not err <= 1e-4 or not bool(torch.isfinite(got).all()) or not torch.equal(got, again):
-        raise SmokeFailure("B2 kernel disagrees with its plain version")
-    if cfg["variant"] != "register":
-        raise SmokeFailure(f"B2 took its {cfg['variant']} variant at [{b}, {m + 1}, {n + 1}]; the "
-                           f"main-path shape must take the register one")
+    hold_sinkhorn(scores, alpha, iters, row, col, "register")
+    print("[B2 sinkhorn] kernel holds to its plain version (utils/kernel_checks.py), register")
     # scores to output, through the wrapper the matching head calls
     call = eval_path_calls(torch, dev)["sinkhorn"]
     prof = device_events(torch, call)
@@ -634,11 +594,12 @@ def check_sinkhorn(torch, dev):
     floor_ms, cycles = sinkhorn_floor_ms(iters, sinkhorn.GROUP)
     print(f"[B2 sinkhorn] scores to output {ms:.4f} ms (unqueued {t['unqueued_ms']:.4f}, host "
           f"{t['host_us']:.1f} us per call; {sinkhorn.GROUP} lanes per row), kernel "
-          f"alone {prof['device_ms']:.4f} device ms, plain {plain_ms:.4f} ms, bound {bms:.6f} ms "
-          f"({by}: {n_bytes} B, {n_ops} flop); dependency floor estimate {floor_ms:.4f} ms "
-          f"({cycles} cycles per half-iteration at assumed latencies, not measured)")
+          f"alone {prof['device_ms']:.4f} device ms, config {sinkhorn.last_config}, plain "
+          f"{plain_ms:.4f} ms, bound {bms:.6f} ms ({by}: {n_bytes} B, {n_ops} flop); dependency "
+          f"floor estimate {floor_ms:.4f} ms ({cycles} cycles per half-iteration at assumed "
+          f"latencies, not measured)")
     return {"name": "sinkhorn", "route": "cuda", "source": "nopesac_torch/ops/csrc/sinkhorn.cu",
-            "replaces": "nopesac_tpu/ops/sinkhorn_pallas.py:87", "max_abs_err": err,
+            "replaces": "nopesac_tpu/ops/sinkhorn_pallas.py:87",
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
             "unqueued_ms": t["unqueued_ms"], "host_us": t["host_us"],
             "kernel_device_ms": prof["device_ms"], "device_events_per_call": prof["per_call"]}
@@ -821,19 +782,6 @@ def run_planar_scene(torch, dev, model, images, card):
     return got
 
 
-def check_small_reference(torch, dev):
-    from nopesac_torch.engine.predict import build_model_from_cfg, make_eval_step, synthetic_pairs
-
-    cfg = load_cfg((96, 128))
-    images = synthetic_pairs(2, 96, 128, seed=7, device="cpu")
-    outs = []
-    for d in ("cpu", dev):
-        model = build_model_from_cfg(cfg, device=d, seed=0)
-        outs.append(make_eval_step(model, 96, 128, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)(
-            *images))
-    compare_with_cpu(torch, *outs, "reference 96x128")
-
-
 def mask_loss_inputs(torch, seed, b, nq, h, w, n_matched, grid=(3, 4)):
     """Seeded logits with coarse structure, disjoint GT masks (a grid of
     planes per view, ids shuffled) and n_matched matched queries per view,
@@ -858,106 +806,41 @@ def mask_loss_inputs(torch, seed, b, nq, h, w, n_matched, grid=(3, 4)):
     return src, masks, tgt, matched
 
 
-def check_mask_loss(torch, dev):
+def time_mask_loss(torch, dev):
+    """Phase 8: B3 held to its plain version with f32 and with bf16 logits,
+    and on an all-unmatched batch; its kernels' attributes; the kernels and
+    their plain versions timed with f32 and with bf16 logits."""
     from nopesac_torch.ops import mask_loss
+    from nopesac_torch.utils.kernel_checks import hold_mask_loss
 
     b, nq, h, w, n_matched = 2 * TRAIN_PAIRS, 50, 120, 160, TRAIN_PLANES
     src, masks, tgt, matched = (t.to(dev) for t in mask_loss_inputs(torch, 3, b, nq, h, w,
                                                                        n_matched))
     weights = torch.randn((b, nq, 4), generator=torch.Generator().manual_seed(4)).to(dev)
-
-    def sums_and_grad(fn, m):
-        x = src.clone().requires_grad_(True)
-        sums = fn(x, masks, tgt, m)
-        torch.autograd.backward(torch.stack(sums, dim=-1), weights)
-        return torch.stack(sums, dim=-1).detach(), x.grad
-
-    k_sums, k_grad = sums_and_grad(mask_loss.fused_focal_dice, matched)
-    p_sums, p_grad = sums_and_grad(mask_loss.focal_dice_plain, matched)
-    z_sums, z_grad = sums_and_grad(mask_loss.fused_focal_dice, torch.zeros_like(matched))
-    torch.cuda.synchronize()
-    sum_rel = float(((k_sums - p_sums).abs() / p_sums.abs().clamp_min(1e-30))[matched].max())
-    sum_err = float((k_sums - p_sums).abs().max())
-    scale = float(p_grad.abs().max())
-    grad_err = float((k_grad - p_grad).abs().max())
-    zeros_ok = (bool((k_sums[~matched] == 0).all()) and bool((k_grad[~matched] == 0).all())
-                and not bool(z_sums.any()) and not bool(z_grad.any()))
-    print(f"[B3 mask_loss] {int(matched.sum())} matched of {b * nq} queries at [{b}, {nq}, {h}, "
-          f"{w}] -> {4 * h}x{4 * w}: sums max rel err {sum_rel:.3e} (max abs {sum_err:.3e}), "
-          f"d src max err {grad_err:.3e} of max |d src| {scale:.3e}; unmatched and all-unmatched "
-          f"exact zeros: {zeros_ok}")
-    if not (sum_rel <= 1e-4 and grad_err <= 1e-4 * scale and zeros_ok):
-        raise SmokeFailure("B3 kernel disagrees with its plain version")
-
+    for logits, m in ((src, matched), (src.to(torch.bfloat16), matched),
+                      (src, torch.zeros_like(matched))):
+        hold_mask_loss(logits, masks, tgt, m, weights)
+    print(f"[B3 mask_loss] kernels hold to their plain versions (utils/kernel_checks.py) at "
+          f"[{b}, {nq}, {h}, {w}] with {n_matched} matched per view, f32 and bf16 logits, and "
+          f"with none matched")
     for which in ("fwd", "bwd"):
         print(f"[B3 mask_loss] {which} kernel at w {w}: {mask_loss.kernel_attributes(which, w)} "
               f"(cudaFuncGetAttributes)")
     idx = mask_loss._flat_index(masks, tgt, matched)
     grad3 = weights[..., :3].reshape(-1, 3).contiguous()
-    t_fwd = kernel_ms(torch, lambda: mask_loss.mask_loss_fwd_cuda(src, masks, idx), iters=50)
-    t_bwd = kernel_ms(torch, lambda: mask_loss.mask_loss_bwd_cuda(src, masks, idx, grad3),
-                      iters=50)
-    ms_fwd, ms_bwd = t_fwd["ms"], t_bwd["ms"]
-
-    def plain_fwd():
-        return mask_loss.focal_dice_plain(src.detach().requires_grad_(True), masks, tgt, matched)
-
-    def plain_fwd_bwd():
-        torch.autograd.backward(torch.stack(plain_fwd(), dim=-1), weights)
-
-    plain_fwd_ms = kernel_ms(torch, plain_fwd, warm=2, iters=5)["ms"]
-    plain_bwd_ms = kernel_ms(torch, plain_fwd_bwd, warm=2, iters=5)["ms"] - plain_fwd_ms
-    n_m, n_px = int(matched.sum()), 16 * h * w
-    read = n_m * (h * w * 4 + n_px) + b * nq * 4  # matched logits, matched masks, index
-    fwd_bms, fwd_by = bound_ms(read + b * nq * 4 * 4, n_m * n_px * MASK_FWD_OPS)
-    bwd_bms, bwd_by = bound_ms(read + b * nq * 3 * 4 + b * nq * h * w * 4,
-                               n_m * n_px * MASK_BWD_OPS)
-    print(f"[B3 mask_loss] forward kernel {ms_fwd:.4f} ms (unqueued {t_fwd['unqueued_ms']:.4f}; "
-          f"bound {fwd_bms:.4f} ms, {fwd_by}), plain {plain_fwd_ms:.3f} ms; backward kernel "
-          f"{ms_bwd:.4f} ms (unqueued {t_bwd['unqueued_ms']:.4f}; bound {bwd_bms:.4f} ms, "
-          f"{bwd_by}), plain {plain_bwd_ms:.3f} ms")
-    bf16 = check_mask_loss_bf16(torch, src, masks, tgt, matched, weights, idx, grad3)
-    common = {"route": "cuda", "source": "nopesac_torch/ops/csrc/mask_loss.cu",
-              "library_ms": None}
-    return [dict(common, name="mask_loss_fwd", replaces="nopesac_tpu/ops/mask_loss_pallas.py:199",
-                 max_abs_err=sum_err, ms=ms_fwd, plain_ms=plain_fwd_ms, bound_ms=fwd_bms,
-                 bound_by=fwd_by, unqueued_ms=t_fwd["unqueued_ms"], host_us=t_fwd["host_us"],
-                 bf16=bf16["fwd"]),
-            dict(common, name="mask_loss_bwd", replaces="nopesac_tpu/ops/mask_loss_pallas.py:235",
-                 max_abs_err=grad_err, ms=ms_bwd, plain_ms=plain_bwd_ms, bound_ms=bwd_bms,
-                 bound_by=bwd_by, unqueued_ms=t_bwd["unqueued_ms"], host_us=t_bwd["host_us"],
-                 bf16=bf16["bwd"])]
+    f32 = mask_loss_rows(torch, src, masks, tgt, matched, weights, idx, grad3)
+    bf16 = mask_loss_rows(torch, src.to(torch.bfloat16), masks, tgt, matched, weights, idx, grad3)
+    # the bf16 rows' launches: phase 16's
+    return [dict(f32[k], bf16=dict(bf16[k], dtype="bfloat16")) for k in ("fwd", "bwd")]
 
 
-def check_mask_loss_bf16(torch, src32, masks, tgt, matched, weights, idx, grad3):
-    """Phase 8 with the logits rounded to bf16: kernel against the plain
-    version on the same bf16 values (f32 sums, a bf16 d src), then timed."""
+def mask_loss_rows(torch, src, masks, tgt, matched, weights, idx, grad3):
+    """B3's forward and backward kernels and their plain versions timed on
+    `src`, f32 or bf16 logits: their rows of the kernels line."""
     from nopesac_torch.ops import mask_loss
 
-    src = src32.to(torch.bfloat16)
     b, nq, h, w = src.shape
-
-    def sums_and_grad(fn, m):
-        x = src.clone().requires_grad_(True)
-        sums = fn(x, masks, tgt, m)
-        torch.autograd.backward(torch.stack(sums, dim=-1), weights)
-        return torch.stack(sums, dim=-1).detach(), x.grad
-
-    k_sums, k_grad = sums_and_grad(mask_loss.fused_focal_dice, matched)
-    p_sums, p_grad = sums_and_grad(mask_loss.focal_dice_plain, matched)
-    torch.cuda.synchronize()
-    if k_grad.dtype != torch.bfloat16 or k_sums.dtype != torch.float32:
-        raise SmokeFailure(f"B3 bf16: d src {k_grad.dtype}, sums {k_sums.dtype}")
-    sum_rel = float(((k_sums - p_sums).abs() / p_sums.abs().clamp_min(1e-30))[matched].max())
-    sum_err = float((k_sums - p_sums).abs().max())
-    scale = float(p_grad.float().abs().max())
-    grad_err = float((k_grad.float() - p_grad.float()).abs().max())
-    zeros_ok = bool((k_sums[~matched] == 0).all()) and bool((k_grad[~matched] == 0).all())
-    print(f"[B3 mask_loss] bf16 logits: sums max rel err {sum_rel:.3e}, d src max err "
-          f"{grad_err:.3e} of max |d src| {scale:.3e} (one bf16 ulp: {BF16_ULP * scale:.3e}); "
-          f"unmatched exact zeros: {zeros_ok}")
-    if not (sum_rel <= 1e-4 and grad_err <= BF16_ULP * scale and zeros_ok):
-        raise SmokeFailure("B3 kernel (bf16 logits) disagrees with its plain version")
+    elem = src.element_size()
     t_fwd = kernel_ms(torch, lambda: mask_loss.mask_loss_fwd_cuda(src, masks, idx), iters=50)
     t_bwd = kernel_ms(torch, lambda: mask_loss.mask_loss_bwd_cuda(src, masks, idx, grad3),
                       iters=50)
@@ -972,25 +855,25 @@ def check_mask_loss_bf16(torch, src32, masks, tgt, matched, weights, idx, grad3)
     plain_fwd_ms = kernel_ms(torch, plain_fwd, warm=2, iters=5)["ms"]
     plain_bwd_ms = kernel_ms(torch, plain_fwd_bwd, warm=2, iters=5)["ms"] - plain_fwd_ms
     n_m, n_px = int(matched.sum()), 16 * h * w
-    read = n_m * (h * w * 2 + n_px) + b * nq * 4  # matched bf16 logits, masks, index
+    read = n_m * (h * w * elem + n_px) + b * nq * 4  # matched logits, matched masks, index
     fwd_bms, fwd_by = bound_ms(read + b * nq * 4 * 4, n_m * n_px * MASK_FWD_OPS)
-    bwd_bms, bwd_by = bound_ms(read + b * nq * 3 * 4 + b * nq * h * w * 2,
+    bwd_bms, bwd_by = bound_ms(read + b * nq * 3 * 4 + b * nq * h * w * elem,
                                n_m * n_px * MASK_BWD_OPS)
-    print(f"[B3 mask_loss] bf16 logits: forward kernel {ms_fwd:.4f} ms (unqueued "
-          f"{t_fwd['unqueued_ms']:.4f}; bound {fwd_bms:.4f} ms, {fwd_by}), plain "
+    print(f"[B3 mask_loss] {str(src.dtype)[6:]} logits: forward kernel {ms_fwd:.4f} ms "
+          f"(unqueued {t_fwd['unqueued_ms']:.4f}; bound {fwd_bms:.4f} ms, {fwd_by}), plain "
           f"{plain_fwd_ms:.3f} ms; backward kernel {ms_bwd:.4f} ms (unqueued "
           f"{t_bwd['unqueued_ms']:.4f}; bound {bwd_bms:.4f} ms, {bwd_by}), plain "
           f"{plain_bwd_ms:.3f} ms")
     common = {"route": "cuda", "source": "nopesac_torch/ops/csrc/mask_loss.cu",
-              "library_ms": None, "dtype": "bfloat16"}  # launches: phase 16's
-    return {"fwd": dict(common, name="mask_loss_fwd", max_abs_err=sum_err, ms=ms_fwd,
+              "library_ms": None}
+    return {"fwd": dict(common, name="mask_loss_fwd",
+                        replaces="nopesac_tpu/ops/mask_loss_pallas.py:199", ms=ms_fwd,
                         plain_ms=plain_fwd_ms, bound_ms=fwd_bms, bound_by=fwd_by,
-                        unqueued_ms=t_fwd["unqueued_ms"], host_us=t_fwd["host_us"],
-                        replaces="nopesac_tpu/ops/mask_loss_pallas.py:199"),
-            "bwd": dict(common, name="mask_loss_bwd", max_abs_err=grad_err, ms=ms_bwd,
+                        unqueued_ms=t_fwd["unqueued_ms"], host_us=t_fwd["host_us"]),
+            "bwd": dict(common, name="mask_loss_bwd",
+                        replaces="nopesac_tpu/ops/mask_loss_pallas.py:235", ms=ms_bwd,
                         plain_ms=plain_bwd_ms, bound_ms=bwd_bms, bound_by=bwd_by,
-                        unqueued_ms=t_bwd["unqueued_ms"], host_us=t_bwd["host_us"],
-                        replaces="nopesac_tpu/ops/mask_loss_pallas.py:235")}
+                        unqueued_ms=t_bwd["unqueued_ms"], host_us=t_bwd["host_us"])}
 
 
 _DET = ("loss_ce", "loss_mask", "loss_dice", "loss_center_ins", "loss_param_l1", "loss_param_cos")
@@ -1217,15 +1100,14 @@ def hungarian_events(torch, dev):
 def check_hungarian(torch, dev, card, batches, prof):
     """Phase 22: kernel H1 (the matcher) against its plain version, bit for
     bit, on the card's own costs from a full-width train detect (3 levels x
-    32 views: [96, 50, 50]) and on the seeded families of
-    `losses/hungarian_cases.py`; optimal against `hungarian_host` (scipy);
-    `match_planes_multi` with no host sync; the remaining syncs of one train
-    step by site; times and bound."""
+    32 views: [96, 50, 50]; tests/test_torch_gpu.py holds it on the seeded
+    families of `losses/hungarian_cases.py`); optimal against
+    `hungarian_host` (scipy); `match_planes_multi` with no host sync; the
+    remaining syncs of one train step by site; times and bound."""
     from nopesac_torch.data.packing import unpack_targets
     from nopesac_torch.engine.train import TrainStep, build_train_model
     from nopesac_torch.losses import hungarian as H
     from nopesac_torch.losses.criterion import compute_match_cost, match_planes_multi
-    from nopesac_torch.losses.hungarian_cases import FAMILIES, SHAPES, cost_family
     from nopesac_torch.ops import hungarian as h1
     from nopesac_torch.utils.device import LAUNCHES
 
@@ -1282,18 +1164,6 @@ def check_hungarian(torch, dev, card, batches, prof):
     late = device_events(torch, lambda: h1.hungarian_cuda(cost, num_gt))
     print(f"[H1 hungarian] torch.profiler in phase 22's place: {late['per_call']:g} device "
           f"events per call ({late['names']}); right after phase 4: {prof['per_call']:g}")
-
-    # the seeded families
-    for n_prob, n in SHAPES:
-        for family in FAMILIES:
-            c, k, _ = cost_family(family, n_prob, n, seed=7)
-            ref = H.hungarian_plain(torch.from_numpy(c), torch.from_numpy(k))
-            out_k = h1.hungarian_cuda(torch.from_numpy(c).to(dev), torch.from_numpy(k).to(dev))
-            if not torch.equal(out_k.cpu(), ref):
-                raise SmokeFailure(f"H1 disagrees with its plain version on {family} "
-                                   f"[{n_prob}, {n}, {c.shape[2]}]")
-    print(f"[H1 hungarian] bit-equal to the plain version on the families {FAMILIES} at "
-          f"{[list(s) for s in SHAPES]}")
 
     # the call site makes no host sync, and launches H1 once
     LAUNCHES.reset()
@@ -1354,7 +1224,7 @@ def check_hungarian(torch, dev, card, batches, prof):
           f"{int(num_gt[worst])} rows x {row_cycles} cycles at assumed latencies, not "
           f"measured); on {card}")
     return {"name": "hungarian", "route": "cuda", "source": "nopesac_torch/ops/csrc/hungarian.cu",
-            "replaces": "nopesac_tpu/losses/hungarian.py:213", "max_abs_err": float(n_bad),
+            "replaces": "nopesac_tpu/losses/hungarian.py:213",
             "ms": t["ms"], "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": None, "unqueued_ms": t["unqueued_ms"], "host_us": t["host_us"],
             "host_path_ms": host_ms, "costs_ms": costs["ms"],
@@ -1447,115 +1317,6 @@ def run_bf16_train_path(torch, dev, card, batches, f32_ms, f32_peak):
           f"{peak_off / 2**30:.2f}, {f32_peak / 2**30:.2f}; {TRAIN_PAIRS} pairs at 480x640 on "
           f"{card}")
     return counts
-
-
-def train_grads(torch, model, batch, aim, matches=None, capture=None):
-    """One train_forward and backward: the losses as floats, their dtypes and
-    each module's gradient as one f64 host vector. `matches` replace the
-    Hungarian solve; `capture` (a list) receives the solve's result."""
-    from nopesac_torch.models import nopesac
-
-    solve = nopesac.match_planes_multi
-
-    def patched(*args):
-        if matches is not None:
-            return [m.to(args[1]["gt_valid"].device) for m in matches]
-        out = solve(*args)
-        if capture is not None:
-            capture.extend(o.cpu() for o in out)
-        return out
-
-    nopesac.match_planes_multi = patched
-    try:
-        losses = model.train_forward(batch, None, *aim)
-        torch.stack([v.float() for v in losses.values()]).sum().backward()
-    finally:
-        nopesac.match_planes_multi = solve
-    grads = {}
-    for mod in TRAIN_MODULES:
-        grads[mod] = torch.cat([p.grad.detach().reshape(-1).double().cpu()
-                                for n, p in model.named_parameters()
-                                if n.startswith(mod) and p.grad is not None])
-    return ({k: float(v.detach()) for k, v in losses.items()}, {k: v.dtype for k, v in losses.items()},
-            grads)
-
-
-def check_bf16_train_reference(torch, dev):
-    """Phase 16's reference: one step of one pair at 96x128 of
-    train_mp3d_step3.yaml, bf16 on the CPU (its Hungarian match captured)
-    and in f32, and on the card in bf16 and f32 with that match injected:
-    each loss by tests/test_torch_bf16_train.py's loss rule with the larger
-    of the card's and the CPU's own bf16-vs-f32 deviations in place of
-    JAX's (neither side is the reference: a loss of a few numbers can land
-    near its f32 value on one of them), the rounding ratio against the
-    card's; each module's gradient by the gradient rule with the card's
-    own deviation."""
-    from nopesac_torch.engine.train import build_train_model, synthetic_batches
-    from nopesac_torch.losses import camera_losses
-    from nopesac_torch.models.nopesac import AIM_RAND_POSES
-
-    base = ["MODEL.SEM_SEG_HEAD.DROPOUT", "0.0", "SOLVER.IMS_PER_BATCH", "1",
-            "INPUT.IMAGE_SIZE", "(96, 128)", "MODEL.WEIGHTS", ""]
-    cfg16 = load_train_cfg(TRAIN_CONFIG, base)
-    cfg32 = load_train_cfg(TRAIN_CONFIG, base + F32_TRAIN[:4])
-    cpu = build_train_model(cfg16, device="cpu", seed=0)
-    separate_queries(torch, cpu, seed=1)
-    batch = next(iter(synthetic_batches(cfg16, 1, seed=5, n_planes=6, device="cpu")))
-    card_batch = {k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict)
-                      else v.to(dev)) for k, v in batch.items()}
-    gen = torch.Generator().manual_seed(3)
-    aim = [camera_losses.rand_aim_rot(gen, AIM_RAND_POSES), camera_losses.rand_aim_trans(
-        gen, AIM_RAND_POSES)]
-    matches = []
-    ref, ref_dt, ref_g = train_grads(torch, cpu, batch, aim, capture=matches)
-    cpu32 = build_train_model(cfg32, device="cpu")
-    cpu32.load_state_dict(cpu.state_dict())
-    ref32 = train_grads(torch, cpu32, batch, aim, matches)[0]
-    del cpu32
-    runs = {}
-    for name, cfg in (("bf16", cfg16), ("f32", cfg32)):
-        model = build_train_model(cfg, device=dev)
-        model.load_state_dict(cpu.state_dict())
-        runs[name] = train_grads(torch, model, card_batch, [a.to(dev) for a in aim], matches)
-        del model
-    (got, got_dt, got_g), (own, _, own_g) = runs["bf16"], runs["f32"]
-    if got_dt != ref_dt:
-        raise SmokeFailure("bf16 train reference: the losses' dtypes differ between card and CPU")
-    rel, bad, ratios = {}, {}, {}
-    for k in ref:
-        scale = max(abs(own[k]), 1e-30)
-        rel[k] = (abs(got[k] - ref[k]) / scale, abs(got[k] - own[k]) / scale,
-                  abs(ref[k] - ref32[k]) / scale, bf16_ulp(scale) / scale)
-    for k, (err, d_card, d_cpu, ulp) in rel.items():
-        # both sides are the port, each with its own bf16 draw: the larger bounds
-        noise = max(d_card, d_cpu)
-        floor = max(1e-3, ulp) if ref_dt[k] == torch.bfloat16 else 1e-3
-        if k in LEVEL_NOISE and noise < floor:  # as tests/test_torch_bf16_train.py
-            noise = max(max(rel[f][1:3]) for f in (k, f"{k}_0", f"{k}_1") if f in rel)
-        if not err <= max(1.5 * noise, floor):
-            bad[k] = (err, noise, floor)
-    for k, (_, d_card, d_cpu, ulp) in rel.items():
-        if d_card > ulp / 2:
-            ratios[k] = d_cpu / d_card
-            if not 0.25 <= ratios[k] <= 4.0:
-                bad[k] = ("rounding", d_cpu, d_card)
-    if bad or not ratios:
-        raise SmokeFailure(f"bf16 train reference, losses card vs CPU (err, the larger own bf16 "
-                           f"noise, floor): {bad}; all (err, card noise, CPU noise, ulp): {rel}")
-    worst = max(rel.items(), key=lambda kv: kv[1][0])
-    grad = {}
-    for mod in TRAIN_MODULES:
-        rel = float((got_g[mod] - ref_g[mod]).norm() / ref_g[mod].norm())
-        gap = float((got_g[mod] - own_g[mod]).norm() / own_g[mod].norm())
-        grad[mod] = (rel, gap)
-        if not rel <= max(2 * gap, 1e-2):
-            raise SmokeFailure(f"bf16 train reference: {mod} gradient card vs CPU {rel:.3e}, "
-                               f"the card's own bf16-vs-f32 gap {gap:.3e}")
-    print(f"[train bf16 reference 96x128] card vs CPU (bf16, the CPU's match injected): worst "
-          f"relative loss difference {worst[0]} (err, the card's own noise, the CPU's, one ulp) "
-          f"{worst[1]}; the CPU's over the card's bf16 deviation where above half an ulp "
-          f"{ {k: round(v, 3) for k, v in ratios.items()} }; per module gradient relative "
-          f"difference and the card's own bf16-vs-f32 gap {grad}")
 
 
 def trainer_cfg(path, out_dir, opts=()):
@@ -2251,30 +2012,21 @@ def b4_times_text(t, per="call"):
             f"{t['unfused_unqueued_ms']:.4f} ms")
 
 
-def check_bottleneck(torch, dev, card):
+def time_bottleneck(torch, dev, card):
+    """Phase 11: B4 at the eight eval shapes, f32 then bf16, each held to its
+    plain version (utils/kernel_checks.py) in the variant the shape must
+    take, then timed."""
     from nopesac_torch.ops import bottleneck
+    from nopesac_torch.utils.kernel_checks import hold_bottleneck
 
     F = torch.nn.functional
     b = 2 * N_PAIRS
     rows, total = [], dict.fromkeys(B4_TOTALS, 0.0)
     by_count = {"bytes": 0, "operations": 0}
-    worst = 0.0
     for stage, h, w, cout, mid, n_blocks in B4_STAGES:
         for cin, co, residual in ((cout, mid, False), (mid, cout, True)):
             x, wt, scale, shift, res = b4_inputs(torch, dev, len(rows), b, cin, co, h, w, residual)
-            got = bottleneck.conv1x1_bn_act_cuda(x, wt, scale, shift, residual=res)
-            cfg = dict(bottleneck.last_config)
-            ref = bottleneck.conv1x1_bn_act_plain(x, wt, scale, shift, residual=res)
-            torch.cuda.synchronize()
-            if cfg["variant"] != "vec":
-                raise SmokeFailure(f"B4 took its {cfg['variant']} variant at {stage} {cin}->{co}; "
-                                   f"every eval shape must take the vec one")
-            err = float((got - ref).abs().max())
-            rel = err / float(ref.abs().max())
-            worst = max(worst, err)
-            if not rel <= B4_F32_TOL:
-                raise SmokeFailure(f"B4 kernel disagrees with its plain version at {stage} "
-                                   f"{cin}->{co}: max |diff| {err:.3e} ({rel:.3e} of max |ref|)")
+            _, cfg = hold_bottleneck(x, wt, scale, shift, res, variant="vec")
 
             def unfused():  # models/resnet.py without B4: ConvNorm, then add and ReLU
                 y = F.conv2d(x, wt) * scale[None, :, None, None] + shift[None, :, None, None]
@@ -2283,38 +2035,16 @@ def check_bottleneck(torch, dev, card):
             t = b4_times(torch, bottleneck, unfused, x, wt, scale, shift, res)
             bms, by = bound_ms(*b4_cost(b, cin, co, h * w, residual))
             rows.append(dict(t, shape=f"{stage} {cin}->{co}{' +res' if residual else ''}",
-                             P=b * h * w, bound_ms=bms, bound_by=by, max_rel_err=rel, config=cfg))
+                             P=b * h * w, bound_ms=bms, bound_by=by, config=cfg))
             print(f"[B4 bottleneck_tail] {rows[-1]['shape']} (P {b * h * w}, x{n_blocks} per "
-                  f"batch): {b4_times_text(t)}, bound {bms:.4f} ms ({by}); max |diff| {err:.3e} "
-                  f"({rel:.2e} of max |ref|); variant {cfg['variant']}, BM {cfg['bm']}, split "
-                  f"{cfg['split']}, {cfg['blocks']} blocks")
+                  f"batch): {b4_times_text(t)}, bound {bms:.4f} ms ({by}); holds to its plain "
+                  f"version; variant {cfg['variant']}, BM {cfg['bm']}, split {cfg['split']}, "
+                  f"{cfg['blocks']} blocks")
             for key in B4_TOTALS:
                 total[key] += n_blocks * rows[-1][key]
             by_count[by] += n_blocks
-            del x, wt, res, got, ref
-    bf16 = check_bottleneck_bf16(torch, dev, card)
-    # bf16 at the JAX test's shape (P 300, not a multiple of the 128-pixel
-    # tile), with and without residual and ReLU; within one bf16 ulp
-    bf16_rel = bf16["max_diff_over_limit"]
-    for bb, cin, co, h, w, residual, relu in ((2, 64, 256, 15, 20, True, True),
-                                              (2, 64, 256, 15, 20, False, False)):
-        x, wt, scale, shift, res = b4_inputs(torch, dev, 100 + cin, bb, cin, co, h, w, residual,
-                                             torch.bfloat16)
-        got = bottleneck.conv1x1_bn_act_cuda(x, wt, scale, shift, residual=res, relu=relu).float()
-        variant = bottleneck.last_config["variant"]
-        if variant != "wgmma":
-            raise SmokeFailure(f"B4 bf16 took its {variant} variant at the JAX test's shape")
-        ref = bottleneck.conv1x1_bn_act_plain(x, wt, scale, shift, residual=res, relu=relu).float()
-        torch.cuda.synchronize()
-        diff, lim = (got - ref).abs(), BF16_ULP * ref.abs() + 1e-6
-        over = int((diff > lim).sum())
-        ulps = float((diff / lim).max())
-        bf16_rel = max(bf16_rel, ulps)
-        print(f"[B4 bottleneck_tail] bf16 [{bb}, {cin}, {h * w}] -> {co}, residual {residual}, "
-              f"relu {relu} ({variant} variant): max |diff| {float(diff.max()):.3e}, max |diff| / "
-              f"(2^-7 |ref| + 1e-6) {ulps:.3f}; {over} of {diff.numel()} outside")
-        if over:
-            raise SmokeFailure("B4 kernel (bf16) disagrees with its plain version")
+            del x, wt, res
+    bf16 = time_bottleneck_bf16(torch, dev, card)
     for dtype, bm, variant in ((torch.float32, 128, "vec"), (torch.float32, 64, "vec"),
                                (torch.bfloat16, 128, "scalar")):
         print(f"[B4 bottleneck_tail] {variant} {str(dtype)[6:]} BM {bm}: "
@@ -2328,32 +2058,8 @@ def check_bottleneck(torch, dev, card):
           f"{b4_times_text(total, 'batch')}, bound {total['bound_ms']:.4f} ms, on {card}")
     return {"name": "bottleneck_tail", "route": "cuda",
             "source": "nopesac_torch/ops/csrc/bottleneck.cu",
-            "replaces": "nopesac_tpu/ops/bottleneck_pallas.py:88", "max_abs_err": worst,
-            **total, "bound_by": by, "library_ms": None,
-            "bf16_max_diff_over_limit": bf16_rel, "per_shape": rows,
-            "bf16": {k: v for k, v in bf16.items() if k != "max_diff_over_limit"}}
-
-
-def b4_exact(torch, x, wt, scale, shift, res, relu=True):
-    """B4's function in f64 on the card, rounded once to bf16: the exact
-    product of the bf16 inputs, against which the kernel and its plain
-    version are both held to one bf16 ulp."""
-    b, cin = x.shape[:2]
-    acc = torch.matmul(wt.reshape(wt.shape[0], -1).to(torch.bfloat16).double(),
-                       x.reshape(b, cin, -1).double())
-    acc = acc * scale.double()[:, None] + shift.double()[:, None]
-    if res is not None:
-        acc = acc + res.reshape(acc.shape).double()
-    if relu:
-        acc = torch.relu(acc)
-    return acc.to(torch.bfloat16).reshape(b, wt.shape[0], *x.shape[2:])
-
-
-def outside_ulp(torch, got, ref):
-    """Outputs of `got` outside one bf16 ulp (2^-7 |ref| + 1e-6) of `ref`, and
-    the largest |diff| over that limit."""
-    diff, lim = (got.float() - ref.float()).abs(), BF16_ULP * ref.float().abs() + 1e-6
-    return int((diff > lim).sum()), float((diff / lim).max()), float(diff.max())
+            "replaces": "nopesac_tpu/ops/bottleneck_pallas.py:88",
+            **total, "bound_by": by, "library_ms": None, "per_shape": rows, "bf16": bf16}
 
 
 def hgmma_count():
@@ -2369,14 +2075,15 @@ def hgmma_count():
     return len(re.findall(r"\bHGMMA\.", out.stdout))
 
 
-def check_bottleneck_bf16(torch, dev, card):
+def time_bottleneck_bf16(torch, dev, card):
     """B4 in bf16 at the eight eval shapes: the wgmma variant, within one bf16
-    ulp (2^-7 |ref| + 1e-6) of its plain version and of the exact product,
-    bit-equal on a second run,
-    timed beside the bf16 sequence the unfused backbone runs (cuDNN 1x1 conv,
-    then the ATen affine, add and ReLU), its bound at bf16 bytes and the
-    dense bf16 tensor-core rate; the HGMMA count of the built library."""
+    ulp of its plain version and bit-equal on a second run, its config and
+    attributes, timed beside the bf16 sequence the unfused backbone runs
+    (cuDNN 1x1 conv, then the ATen affine, add and ReLU), its bound at bf16
+    bytes and the dense bf16 tensor-core rate; the HGMMA count of the built
+    library."""
     from nopesac_torch.ops import bottleneck
+    from nopesac_torch.utils.kernel_checks import hold_bottleneck
 
     F = torch.nn.functional
     bf = torch.bfloat16
@@ -2388,31 +2095,14 @@ def check_bottleneck_bf16(torch, dev, card):
         raise SmokeFailure("the bf16 B4 library has no HGMMA instruction: no tensor-core product")
     total = dict.fromkeys(B4_TOTALS, 0.0)
     by_count = {"bytes": 0, "operations": 0}
-    worst, worst_ulps, rows = 0.0, 0.0, []
+    rows = []
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for stage, h, w, cout, mid, n_blocks in B4_STAGES:
         for cin, co, residual in ((cout, mid, False), (mid, cout, True)):
             x, wt, scale, shift, res = b4_inputs(torch, dev, 200 + len(rows), b, cin, co, h, w,
                                                  residual, bf)
-            got = bottleneck.conv1x1_bn_act_cuda(x, wt, scale, shift, residual=res)
-            cfg = dict(bottleneck.last_config)
-            again = bottleneck.conv1x1_bn_act_cuda(x, wt, scale, shift, residual=res)
-            ref = bottleneck.conv1x1_bn_act_plain(x, wt, scale, shift, residual=res)
-            torch.cuda.synchronize()
+            _, cfg = hold_bottleneck(x, wt, scale, shift, res, variant="wgmma", twice=True)
             shape = f"{stage} {cin}->{co}{' +res' if residual else ''}"
-            if cfg["variant"] != "wgmma":
-                raise SmokeFailure(f"B4 bf16 took its {cfg['variant']} variant at {shape}; every "
-                                   f"eval shape must take the wgmma one")
-            if not torch.equal(got, again):
-                raise SmokeFailure(f"B4 bf16 at {shape}: two runs differ")
-            over, ulps, dmax = outside_ulp(torch, got, ref)
-            worst, worst_ulps = max(worst, dmax), max(worst_ulps, ulps)
-            exact = b4_exact(torch, x, wt, scale, shift, res)
-            over_x, ulps_x, _ = outside_ulp(torch, got, exact)
-            plain_x, plain_ulps_x, _ = outside_ulp(torch, ref, exact)
-            if over or over_x:
-                raise SmokeFailure(f"B4 kernel (bf16) at {shape}: {over} outputs outside one bf16 "
-                                   f"ulp of its plain version, {over_x} of the exact product")
             w16, s16, t16 = wt.to(bf), scale.to(bf)[None, :, None, None], shift.to(bf)[
                 None, :, None, None]
 
@@ -2428,80 +2118,43 @@ def check_bottleneck_bf16(torch, dev, card):
                     cfg["tiles"], resident):
                 raise SmokeFailure(f"B4 bf16 at {shape}: {cfg['blocks']} walking blocks, but the "
                                    f"card holds {resident} at once")
-            rows.append(dict(t, shape=shape, bound_ms=bms, bound_by=by, max_ulps=ulps,
-                             max_ulps_of_exact=ulps_x, plain_max_ulps_of_exact=plain_ulps_x,
-                             config=cfg, attributes=attrs))
+            rows.append(dict(t, shape=shape, bound_ms=bms, bound_by=by, config=cfg,
+                             attributes=attrs))
             print(f"[B4 bottleneck_tail] bf16 {shape} (x{n_blocks} per batch): "
-                  f"{b4_times_text(t)}, bound {bms:.4f} ms ({by}); max |diff| / (2^-7 |ref| + "
-                  f"1e-6) {ulps:.3f} of the plain version, {ulps_x:.3f} of the exact product (the "
-                  f"plain version's own "
-                  f"{plain_ulps_x:.3f}, {plain_x} outside), two runs bit-equal; {cfg['variant']} "
-                  f"BM {cfg['bm']} BN {bottleneck.TILE_COLS}, X by "
-                  f"{cfg['x_load']}, split {cfg['split']}, {cfg['blocks']} blocks (the card holds "
+                  f"{b4_times_text(t)}, bound {bms:.4f} ms ({by}); holds to its plain version, "
+                  f"two runs bit-equal; {cfg['variant']} BM {cfg['bm']} BN "
+                  f"{bottleneck.TILE_COLS}, X by {cfg['x_load']}, split {cfg['split']}, {cfg['blocks']} blocks (the card holds "
                   f"{resident}); registers {attrs['registers']}, shared {attrs['dynamic_smem']} B, "
                   f"spills {attrs['local_bytes']} B")
             for key in B4_TOTALS:
                 total[key] += n_blocks * rows[-1][key]
             by_count[by] += n_blocks
-            del x, wt, res, got, again, ref, exact
-    summation_orders = check_b4_summation_orders(torch, dev, bottleneck)
+            del x, wt, res
+    weight_cast = time_b4_weight_cast(torch, dev, bottleneck)
     by = "bytes" if by_count["bytes"] > by_count["operations"] else "operations"
     print(f"[B4 bottleneck_tail] bf16 per eval batch ({B4_LAUNCHES} calls): "
           f"{b4_times_text(total, 'batch')}, bound {total['bound_ms']:.4f} ms, on {card}")
     return {"name": "bottleneck_tail", "route": "cuda", "dtype": "bfloat16", "variant": "wgmma",
             "source": "nopesac_torch/ops/csrc/bottleneck_wgmma.cu",
-            "replaces": "nopesac_tpu/ops/bottleneck_pallas.py:88", "max_abs_err": worst,
+            "replaces": "nopesac_tpu/ops/bottleneck_pallas.py:88",
             **total, "bound_by": by, "library_ms": None, "launches": 0, "hgmma": hgmma,
-            "per_shape": rows, "max_diff_over_limit": worst_ulps,
-            "summation_orders": summation_orders}
+            "per_shape": rows, "weight_cast": weight_cast}
 
 
-def b4_numpy_inputs(torch, dev, seed, b, cin, cout, h, w):
-    """tests/test_torch_gpu.py's bf16 B4 inputs (numpy's generator), without
-    a residual."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-
-    def t(a):
-        return torch.from_numpy(a.astype(np.float32)).to(dev)
-
-    x = t(np.abs(rng.normal(0, 1, (b, cin, h, w)))).to(torch.bfloat16)
-    wt = t(rng.normal(0, (2.0 / cin) ** 0.5, (cout, cin, 1, 1)))
-    return x, wt, t(rng.uniform(0.5, 1.5, cout)), t(rng.normal(0, 0.1, cout))
-
-
-def check_b4_summation_orders(torch, dev, bottleneck):
-    """B4 bf16 at res4 conv1 on tests/test_torch_gpu.py's seed 3, where the
-    kernel and its plain version (cuBLAS) sum Cin in other f32 orders and
-    round an output to opposite sides of a bf16 boundary: each is held to
-    one ulp of the exact product, and their distance from each other is
-    printed, not bounded. Then the wrapper's host time per call there, the
-    shortest call of the batch, with the f32 weight the model passes (cast
-    per call) and with a bf16 one."""
-    x, wt, scale, shift = b4_numpy_inputs(torch, dev, 3, 2 * N_PAIRS, 1024, 256, 30, 40)
-    got = bottleneck.conv1x1_bn_act_cuda(x, wt, scale, shift)
-    ref = bottleneck.conv1x1_bn_act_plain(x, wt, scale, shift)
-    exact = b4_exact(torch, x, wt, scale, shift, None)
-    torch.cuda.synchronize()
-    over, vs_plain, _ = outside_ulp(torch, got, ref)
-    over_x, vs_exact, _ = outside_ulp(torch, got, exact)
-    plain_over_x, plain_vs_exact, _ = outside_ulp(torch, ref, exact)
+def time_b4_weight_cast(torch, dev, bottleneck):
+    """The bf16 B4 wrapper's host time per call at res4 conv1, the shortest
+    call of the batch, with the f32 weight the model passes (cast per call)
+    and with a bf16 one, and the device's time per call."""
+    x, wt, scale, shift, _ = b4_inputs(torch, dev, 3, 2 * N_PAIRS, 1024, 256, 30, 40, False,
+                                       torch.bfloat16)
     w16 = wt.to(torch.bfloat16)
     t32 = kernel_ms(torch, lambda: bottleneck.conv1x1_bn_act_cuda(x, wt, scale, shift))
     t16 = kernel_ms(torch, lambda: bottleneck.conv1x1_bn_act_cuda(x, w16, scale, shift))
-    print(f"[B4 bottleneck_tail] bf16 res4 1024->256 at the card tests' seed 3: max |diff| / "
-          f"(2^-7 |ref| + 1e-6) {vs_plain:.3f} of the plain version ({over} outside: two f32 "
-          f"summation orders), {vs_exact:.3f} of the exact product ({over_x} outside), the plain "
-          f"version {plain_vs_exact:.3f} of it ({plain_over_x} outside); the wrapper's host "
-          f"{t32['host_us']:.1f} us per call with the f32 weight (cast per call), "
-          f"{t16['host_us']:.1f} with a bf16 one, the device {1e3 * t16['ms']:.1f} us")
-    if over_x:
-        raise SmokeFailure("B4 kernel (bf16) outside one bf16 ulp of the exact product at the "
-                           "card tests' seed 3")
-    return {"vs_plain": vs_plain, "outside_plain": over, "vs_exact": vs_exact,
-            "plain_vs_exact": plain_vs_exact, "host_us_f32_weight": t32["host_us"],
-            "host_us_bf16_weight": t16["host_us"], "device_ms": t16["ms"]}
+    print(f"[B4 bottleneck_tail] bf16 res4 1024->256: the wrapper's host {t32['host_us']:.1f} us "
+          f"per call with the f32 weight (cast per call), {t16['host_us']:.1f} with a bf16 one, "
+          f"the device {1e3 * t16['ms']:.1f} us")
+    return {"host_us_f32_weight": t32["host_us"], "host_us_bf16_weight": t16["host_us"],
+            "device_ms": t16["ms"]}
 
 
 def run_fused_path(torch, dev, model, batches, outs, card):
@@ -3461,12 +3114,11 @@ def main(argv=None):
     try:
         name, card = phase_device(torch)
         phase_build()
-        kernels = [check_select(torch, dev), check_sinkhorn(torch, dev)]
+        kernels = [time_select(torch, dev), time_sinkhorn(torch, dev)]
         h1_events = hungarian_events(torch, dev)
         counts, model, batches, outs, _ = run_main_path(torch, dev, card)
         planar_out = run_planar_scene(torch, dev, model, batches[0], card)
-        check_small_reference(torch, dev)
-        b4 = check_bottleneck(torch, dev, card)
+        b4 = time_bottleneck(torch, dev, card)
         fused_counts, fused = run_fused_path(torch, dev, model, batches, outs, card)
         counts["bottleneck_tail"] = fused_counts["bottleneck_tail"]
         entry = run_entry_point(torch, dev, fused, planar_out, card)
@@ -3476,7 +3128,7 @@ def main(argv=None):
         run_ablations(torch, dev, model, fused, card)
         del model, fused, batches, outs, planar_out
         torch.cuda.empty_cache()
-        kernels += check_mask_loss(torch, dev)
+        kernels += time_mask_loss(torch, dev)
         train_counts, step_ms, step_peak, train_batches = run_train_path(torch, dev, card)
         counts.update({k: v for k, v in train_counts.items()
                        if k.startswith("mask_loss") or k == "hungarian"})
@@ -3487,13 +3139,12 @@ def main(argv=None):
         run_depth_train_path(torch, dev, card, train_batches, step_ms, step_peak)
         del train_batches
         torch.cuda.empty_cache()
-        check_bf16_train_reference(torch, dev)
         run_trainer(torch, dev, card, step_ms)
         run_ranks(torch, card)
         scannet_counts = run_scannet(torch, dev, card)
         kernels.append(b4)
-    except SmokeFailure as e:
-        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+    except (SmokeFailure, AssertionError) as e:  # AssertionError: utils/kernel_checks.py
+        print(f"chip_smoke: FAILED: {e!r}", file=sys.stderr)
         return 1
     for k in kernels:
         k["launches"] = counts[k["name"]]

@@ -79,12 +79,6 @@ def rotation_angle_error_deg(q_pred: np.ndarray, q_gt: np.ndarray) -> np.ndarray
     return 2.0 * np.arccos(np.clip(d, -1.0, 1.0)) * 180.0 / np.pi
 
 
-def translation_error(t_pred: np.ndarray, t_gt: np.ndarray) -> np.ndarray:
-    t_pred = np.asarray(t_pred, dtype=np.float64).reshape(-1, 3)
-    t_gt = np.asarray(t_gt, dtype=np.float64).reshape(-1, 3)
-    return np.linalg.norm(t_pred - t_gt, axis=1)
-
-
 def camera_error_summary(tran_errs, rot_errs) -> dict:
     """Median/mean/acc table (mp3d_evaluation.py:382-425; eval.py adds 0.1m/5deg)."""
     tran_errs = np.asarray(tran_errs, dtype=np.float64)

@@ -1,7 +1,7 @@
 """Seeded cost families of the matcher, in numpy alone: the CPU tests hold
 the plain version (`hungarian_plain`) to the JAX package's solver on them,
-and the card tests and `chip_smoke.py` hold kernel H1 to the plain version
-on the same costs."""
+and the card tests (`tests/test_torch_gpu.py`) hold kernel H1 to the plain
+version on the same costs."""
 import numpy as np
 
 FAMILIES = ("normal", "integers", "layout", "nonfinite")

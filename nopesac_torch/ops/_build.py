@@ -15,7 +15,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "nopesac_torch"
@@ -91,3 +91,43 @@ def check(err: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def _check_result(err, fn, args):
+    check(err, fn.__name__)
+
+
+def entry(lib: str, symbol: str, argtypes: Sequence):
+    """The C entry point `symbol` of `csrc/<lib>.cu`, its library loaded (and
+    built) on first use, returning a cudaError_t. Its signature is set once,
+    on the function pointer that the library's handle keeps (a library
+    loaded anew starts afresh), and a call raises through `check` when the
+    error is non-zero."""
+    fn = getattr(load(lib), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        fn.errcheck = _check_result
+    return fn
+
+
+def size(lib: str, symbol: str, *args: int) -> int:
+    """What an entry point that returns a count (a scratch buffer's size)
+    returns for these ints, asked of the library once per shape. Its
+    signature and the counts it gave are kept as `entry` keeps a signature:
+    on the function pointer of the library's handle."""
+    fn = getattr(load(lib), symbol)
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype, fn.sizes = [ctypes.c_int] * len(args), ctypes.c_int, {}
+    if args not in fn.sizes:
+        fn.sizes[args] = fn(*args)
+    return fn.sizes[args]
+
+
+def attributes(lib: str, symbol: str, names: Sequence[str], *args: int) -> dict:
+    """A kernel's attributes by name, from an `*_attrs` entry point that takes
+    `args` and fills one int per name (cudaFuncGetAttributes and the like),
+    for the record of a run on the card."""
+    vals = (ctypes.c_int * len(names))()
+    entry(lib, symbol, [ctypes.c_int] * len(args) + [ctypes.c_void_p])(*args, vals)
+    return dict(zip(names, vals))

@@ -97,14 +97,10 @@ def _config(b, cin, cout, p, dtype, aligned):
 last_config: dict = {}  # the config of the latest CUDA launch
 
 
-@functools.lru_cache(maxsize=None)
-def _entry(lib: str, name: str, n_int: int):
-    """A C entry point taking six pointers, `n_int` ints and the stream,
-    with its ctypes signature set once."""
-    fn = getattr(_build.load(lib), name)
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+# x, w, scale, shift, residual, out; the ints of each variant's call (8 of
+# `wgmma`'s, 9 of the others'); stream
+_SIGNATURE = {"bottleneck_wgmma": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+              "bottleneck": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]}
 
 
 def conv1x1_bn_act_cuda(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
@@ -148,20 +144,18 @@ def conv1x1_bn_act_cuda(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     p = math.prod(shape[2:])
     cfg = _config(b, cin, cout, p, dtype, aligned)
     if cfg["variant"] == "wgmma":
-        name = "nopesac_conv1x1_bn_act_wgmma"
+        lib, name = "bottleneck_wgmma", "nopesac_conv1x1_bn_act_wgmma"
         args = (b, cin, cout, p, int(relu), int(cfg["x_load"] == "tma"), cfg["split"],
                 cfg["blocks"])
-        fn = _entry("bottleneck_wgmma", name, len(args))
     else:
-        name = "nopesac_conv1x1_bn_act"
+        lib, name = "bottleneck", "nopesac_conv1x1_bn_act"
         args = (b, cin, cout, p, int(relu), int(dtype == torch.bfloat16), cfg["bm"],
                 int(cfg["variant"] == "vec"), cfg["split"])
-        fn = _entry("bottleneck", name, len(args))
+    fn = _build.entry(lib, name, _SIGNATURE[lib])
     # the launch goes to x's card, on its current stream (the raw handle:
     # `torch.cuda.current_stream` builds a Stream object per call)
     with torch.cuda.device(dev):
-        err = fn(*ptrs, *args, torch._C._cuda_getCurrentRawStream(dev.index))
-    _build.check(err, name)
+        fn(*ptrs, *args, torch._C._cuda_getCurrentRawStream(dev.index))
     LAUNCHES.bump(KERNEL)
     last_config.clear()
     last_config.update(cfg)
@@ -173,21 +167,12 @@ def kernel_attributes(dtype: torch.dtype, bm: int, variant: str, x_load: str = "
     (cudaFuncGetAttributes), and for `wgmma` the blocks an SM holds at once
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), for the record of a run
     on the card."""
-    names = ["registers", "static_smem", "dynamic_smem", "local_bytes", "max_threads"]
+    names = ("registers", "static_smem", "dynamic_smem", "local_bytes", "max_threads")
     if variant == "wgmma":
-        name = "nopesac_conv1x1_bn_act_wgmma_attrs"
-        fn = getattr(_build.load("bottleneck_wgmma"), name)
-        args = (int(x_load == "tma"),)
-        names.append("blocks_per_sm")
-    else:
-        name = "nopesac_conv1x1_bn_act_attrs"
-        fn = getattr(_build.load("bottleneck"), name)
-        args = (int(dtype == torch.bfloat16), bm, int(variant == "vec"))
-    vals = (ctypes.c_int * len(names))()
-    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _build.check(fn(*args, vals), name)
-    return dict(zip(names, vals))
+        return _build.attributes("bottleneck_wgmma", "nopesac_conv1x1_bn_act_wgmma_attrs",
+                                 names + ("blocks_per_sm",), int(x_load == "tma"))
+    return _build.attributes("bottleneck", "nopesac_conv1x1_bn_act_attrs", names,
+                             int(dtype == torch.bfloat16), bm, int(variant == "vec"))
 
 
 def conv1x1_bn_act(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,

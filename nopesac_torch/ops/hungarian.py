@@ -26,26 +26,12 @@ def kernel_attributes() -> dict:
     """Registers, static shared memory, spill bytes and the most threads per
     block of the kernel (cudaFuncGetAttributes), for the record of a run on
     the card."""
-    fn = _build.load("hungarian").nopesac_hungarian_attrs
-    fn.argtypes = [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    vals = (ctypes.c_int * 4)()
-    _build.check(fn(vals), "nopesac_hungarian_attrs")
-    return dict(zip(("registers", "static_smem", "local_bytes", "max_threads"), vals))
+    return _build.attributes("hungarian", "nopesac_hungarian_attrs",
+                             ("registers", "static_smem", "local_bytes", "max_threads"))
 
 
-_FN = None
-
-
-def _launcher():
-    global _FN
-    if _FN is None:
-        fn = _build.load("hungarian").nopesac_hungarian
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+# cost, num_gt, match; p, nq, ng; stream
+_SIGNATURE = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def hungarian_cuda(cost: torch.Tensor, num_gt: torch.Tensor) -> torch.Tensor:
@@ -76,7 +62,7 @@ def hungarian_cuda(cost: torch.Tensor, num_gt: torch.Tensor) -> torch.Tensor:
     cost, num_gt = cost.detach().contiguous(), num_gt.contiguous()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _launcher()(cost.data_ptr(), num_gt.data_ptr(), out.data_ptr(), p, nq, ng, stream)
-    _build.check(err, "nopesac_hungarian")
+        _build.entry("hungarian", "nopesac_hungarian", _SIGNATURE)(
+            cost.data_ptr(), num_gt.data_ptr(), out.data_ptr(), p, nq, ng, stream)
     LAUNCHES.bump(KERNEL)
     return out

@@ -162,11 +162,9 @@ def focal_dice_plain(src: torch.Tensor, gt_masks: torch.Tensor, tgt_idx: torch.T
     return tuple(out[:, k].reshape(b, nq) for k in range(4))
 
 
-def _launch(fn_name: str, argtypes, *args) -> None:
-    fn = getattr(_build.load("mask_loss"), fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    _build.check(fn(*args), fn_name)
+# src, masks, idx, work, and the forward's partials and out or the backward's
+# grad and d src; n_pairs, h, w, bf16; stream
+_SIGNATURE = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def _work(n_pairs: int, dev) -> torch.Tensor:
@@ -179,13 +177,9 @@ def _work(n_pairs: int, dev) -> torch.Tensor:
 def kernel_attributes(which: str, w: int) -> dict:
     """Registers, static and dynamic shared memory, spill bytes and resident
     blocks per SM of the forward or backward kernel at src width w."""
-    fn = _build.load("mask_loss").nopesac_mask_loss_attrs
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    vals = (ctypes.c_int * 5)()
-    _build.check(fn(int(which == "bwd"), w, vals), "nopesac_mask_loss_attrs")
-    return dict(zip(("registers", "static_smem", "dynamic_smem", "local_bytes",
-                     "blocks_per_sm"), vals))
+    return _build.attributes("mask_loss", "nopesac_mask_loss_attrs",
+                             ("registers", "static_smem", "dynamic_smem", "local_bytes",
+                              "blocks_per_sm"), int(which == "bwd"), w)
 
 
 def mask_loss_fwd_cuda(src: torch.Tensor, gt_masks: torch.Tensor,
@@ -198,19 +192,16 @@ def mask_loss_fwd_cuda(src: torch.Tensor, gt_masks: torch.Tensor,
     if masks.data_ptr() % 4:
         raise ValueError("mask loss reads the GT masks as uchar4: their storage must be "
                          "4-byte aligned")
-    lib = _build.load("mask_loss")
-    lib.nopesac_mask_loss_tiles.argtypes = [ctypes.c_int]
-    lib.nopesac_mask_loss_tiles.restype = ctypes.c_int
-    tiles = lib.nopesac_mask_loss_tiles(h)
+    tiles = _build.size("mask_loss", "nopesac_mask_loss_tiles", h)
     work = _work(b * nq, dev)
     partials = torch.empty((b * nq, tiles, 4), dtype=torch.float32, device=dev)
     out = torch.empty((b * nq, 4), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch("nopesac_mask_loss_fwd", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                + [ctypes.c_void_p], src.data_ptr(), masks.data_ptr(), idx.data_ptr(),
-                work.data_ptr(), partials.data_ptr(), out.data_ptr(), b * nq, h, w,
-                int(src.dtype == torch.bfloat16), stream)
+        _build.entry("mask_loss", "nopesac_mask_loss_fwd", _SIGNATURE)(
+            src.data_ptr(), masks.data_ptr(), idx.data_ptr(), work.data_ptr(),
+            partials.data_ptr(), out.data_ptr(), b * nq, h, w, int(src.dtype == torch.bfloat16),
+            stream)
     LAUNCHES.bump(KERNEL_FWD + (BF16_SUFFIX if src.dtype == torch.bfloat16 else ""))
     return out
 
@@ -228,10 +219,9 @@ def mask_loss_bwd_cuda(src: torch.Tensor, gt_masks: torch.Tensor, idx: torch.Ten
     work = _work(b * nq, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch("nopesac_mask_loss_bwd", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                + [ctypes.c_void_p], src.data_ptr(), masks.data_ptr(), idx.data_ptr(),
-                work.data_ptr(), grad.data_ptr(), dsrc.data_ptr(), b * nq, h, w,
-                int(src.dtype == torch.bfloat16), stream)
+        _build.entry("mask_loss", "nopesac_mask_loss_bwd", _SIGNATURE)(
+            src.data_ptr(), masks.data_ptr(), idx.data_ptr(), work.data_ptr(), grad.data_ptr(),
+            dsrc.data_ptr(), b * nq, h, w, int(src.dtype == torch.bfloat16), stream)
     LAUNCHES.bump(KERNEL_BWD + (BF16_SUFFIX if src.dtype == torch.bfloat16 else ""))
     return dsrc
 

@@ -114,13 +114,15 @@ def kernel_attributes(variant: str, nq: int) -> dict:
     """Registers, static and dynamic shared memory, spill bytes and resident
     blocks per SM of the vec or scalar variant at nq queries
     (cudaFuncGetAttributes), for the record of a run on the card."""
-    fn = _build.load("select").nopesac_select_maps_attrs
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    vals = (ctypes.c_int * 5)()
-    _build.check(fn(int(variant == "vec"), nq, vals), "nopesac_select_maps_attrs")
-    return dict(zip(("registers", "static_smem", "dynamic_smem", "local_bytes",
-                     "blocks_per_sm"), vals))
+    return _build.attributes("select", "nopesac_select_maps_attrs",
+                             ("registers", "static_smem", "dynamic_smem", "local_bytes",
+                              "blocks_per_sm"), int(variant == "vec"), nq)
+
+
+# prob, score, valid, seg, max, stats, partials, tickets; b, nq, h, w, out_h,
+# out_w; thr, vec, stream
+_SIGNATURE = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def select_maps_cuda(mask_prob: torch.Tensor, score: torch.Tensor, valid: torch.Tensor,
@@ -146,29 +148,22 @@ def select_maps_cuda(mask_prob: torch.Tensor, score: torch.Tensor, valid: torch.
                          f"{h}x{w} -> {out_h}x{out_w}")
     if nq < 1:
         raise ValueError("select kernel needs at least one query")
-    lib = _build.load("select")
     prob = mask_prob.contiguous()
     score = score.to(torch.float32).contiguous()
     valid = valid.contiguous()
     vec = w % 8 == 0 and prob.data_ptr() % 16 == 0
-    lib.nopesac_select_maps_partials.argtypes = [ctypes.c_int] * 3
-    lib.nopesac_select_maps_partials.restype = ctypes.c_int
-    per_view = lib.nopesac_select_maps_partials(nq, h, w)
+    per_view = _build.size("select", "nopesac_select_maps_partials", nq, h, w)
     seg = torch.empty((b, out_h, out_w), dtype=torch.int32, device=dev)
     mx = torch.empty((b, out_h, out_w), dtype=torch.float32, device=dev)
     stats = torch.empty((b, _NSTAT, nq), dtype=torch.float32, device=dev)
     partials = torch.empty((b, per_view), dtype=torch.int32, device=dev)
-    fn = lib.nopesac_select_maps
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = _build.entry("select", "nopesac_select_maps", _SIGNATURE)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         tickets = _tickets(b, dev, stream)
-        err = fn(prob.data_ptr(), score.data_ptr(), valid.data_ptr(), seg.data_ptr(),
-                 mx.data_ptr(), stats.data_ptr(), partials.data_ptr(), tickets.data_ptr(),
-                 b, nq, h, w, out_h, out_w, float(thr), int(vec), stream)
-    _build.check(err, "nopesac_select_maps")
+        fn(prob.data_ptr(), score.data_ptr(), valid.data_ptr(), seg.data_ptr(),
+           mx.data_ptr(), stats.data_ptr(), partials.data_ptr(), tickets.data_ptr(),
+           b, nq, h, w, out_h, out_w, float(thr), int(vec), stream)
     LAUNCHES.bump(KERNEL)
     last_config.clear()
     last_config.update({"variant": "vec" if vec else "scalar",

@@ -41,6 +41,8 @@ def sinkhorn_config(rows: int, cols: int) -> dict:
 
 
 last_config: dict = {}  # the config of the latest CUDA launch
+# scores, row and column masks, alpha, out; b, m, n, iters, values; stream
+_SIGNATURE = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def sinkhorn_plain(scores: torch.Tensor, alpha: torch.Tensor, iters: int,
@@ -87,15 +89,12 @@ def sinkhorn_cuda(scores: torch.Tensor, alpha: torch.Tensor, iters: int,
         raise ValueError(f"sinkhorn coupling [{m + 1}, {n + 1}] does not fit in shared memory")
     scores, alpha = scores.contiguous(), alpha.contiguous()
     out = torch.empty((b, m + 1, n + 1), dtype=torch.float32, device=dev)
-    fn = _build.load("sinkhorn").nopesac_sinkhorn
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.entry("sinkhorn", "nopesac_sinkhorn", _SIGNATURE)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(scores.data_ptr(), None if rows is None else rows.data_ptr(),
-                 None if cols is None else cols.data_ptr(), alpha.data_ptr(), out.data_ptr(),
-                 b, m, n, int(iters), cfg["values"], stream)
-    _build.check(err, "nopesac_sinkhorn")
+        fn(scores.data_ptr(), None if rows is None else rows.data_ptr(),
+           None if cols is None else cols.data_ptr(), alpha.data_ptr(), out.data_ptr(),
+           b, m, n, int(iters), cfg["values"], stream)
     LAUNCHES.bump(KERNEL)
     last_config.clear()
     last_config.update(cfg)
