@@ -27,7 +27,9 @@ step. Then three passes of `--batches` batches each:
      (`stage_host_ms_per_batch`, `stage_self_ms_per_batch`), and the
      counters per batch (`counts_per_batch`: the batch copy's bytes and
      copies; the eval step's segments replayed as CUDA graphs, captured,
-     and run eagerly, `eval.graph_*`: in a warm split the replays alone);
+     and run eagerly, `eval.graph_*`: in a warm split the replays alone;
+     the views the evaluator's `process()` scored and the mask IoU matrices
+     it made and read again, `eval.views_scored`, `eval.iou_*`);
   2. under torch.profiler, where each span is a `nopesac:` range: the
      device time of the operations launched inside each range (a host call
      that starts inside it shares its id with the device operation it

@@ -6,11 +6,16 @@ host-side numpy with the port's RLE codec. It keeps
     artifacts that eval.py reads (mp3d_evaluation.py:331-342),
   * the metric names and thresholds (camera acc@{1.0,0.5,0.2}m/{30,15,10}deg,
     mask AP, plane AP variants, matching precision/recall/F).
+`process()` scores each pair as it arrives, against the GT of `dataset_list`:
+each view's mask IoU, true-positive labels and plane errors, and the pair's
+correct and matched correspondences. In `EvalRunner.test` it runs while the
+card computes the next batch, so `evaluate()` is left with the reductions
+over the whole split (AP, means, medians, the camera table).
 With `distributed=True` each rank processes its own slice of the pairs and
-`evaluate()` gathers the predictions to rank 0 in rank-major order (rank 0's
-pairs, then rank 1's, ...). Rank 0 writes the artifacts and computes the
-metrics against the GT of `dataset_list`, which is the whole split on every
-rank; one more gather shares its result dict, or its error, with every rank.
+`evaluate()` gathers the predictions and their scores to rank 0 in
+rank-major order (rank 0's pairs, then rank 1's, ...). Rank 0 writes the
+artifacts and reduces the scores; `dataset_list` is the whole split on every
+rank. One more gather shares its result dict, or its error, with every rank.
 """
 from __future__ import annotations
 
@@ -33,6 +38,10 @@ from .coco_json import write_siamese_coco_json
 
 logger = logging.getLogger(__name__)
 
+IOU_THRESH = 0.5  # a prediction's mask IoU that matches a GT plane
+NORMAL_THRESH = 30.0  # degrees, plane AP
+OFFSET_THRESH = 0.3  # plane AP
+
 
 def _gt_rle(ann: dict, height: int, width: int):
     seg = ann["segmentation"]
@@ -43,11 +52,13 @@ def _gt_rle(ann: dict, height: int, width: int):
 
 
 class _MaskIous:
-    """The mask IoU matrices of one `evaluate()` call, which the plane AP and
-    the matching passes both read, and the GT RLEs they come from. Keyed on
-    the identity of the prediction view and the GT view, never on an image
-    id: two pairs may share an image id and hold different predictions. The
-    views outlive the memo, so their ids stay theirs while it lives."""
+    """The mask IoU matrices of one split, which a view's plane AP record and
+    its pair's correspondences both read, and the GT RLEs they come from.
+    Keyed on the identity of the prediction view and the GT view, never on an
+    image id: two pairs may share an image id and hold different predictions.
+    The prediction views live in the evaluator's records and the GT views in
+    its dataset until `reset()` drops the memo, so their ids stay theirs
+    while it lives."""
 
     def __init__(self):
         self._gt: Dict[int, list] = {}
@@ -104,7 +115,7 @@ class MP3DEvaluator:
                 v = d[i]
                 if v["image_id"] not in self.image_gt:
                     self.image_gt[v["image_id"]] = v
-        self._predictions: List[dict] = []
+        self.reset()
 
         os.makedirs(self._output_dir, exist_ok=True)
         self.metrics_log = os.path.join(self._output_dir, "metrics.txt")
@@ -115,7 +126,12 @@ class MP3DEvaluator:
             f.write(msg + "\n")
 
     def reset(self):
-        self._predictions = []
+        self._predictions: List[dict] = []
+        # one per prediction: what evaluate() reduces of the pair (_score_pair)
+        self._scores: List[dict] = []
+        # the instances' image ids whose views have a plane AP record
+        self._seen_images: set = set()
+        self._ious = _MaskIous()
 
     # ------------------------------------------------------------------
     def process(self, inputs: List[dict], outputs: List[dict]):
@@ -155,6 +171,94 @@ class MP3DEvaluator:
                     # (reference stores it when present, mp3d_evaluation.py:254)
                     prediction["pred_aff"] = np.asarray(out["pred_aff"])
             self._predictions.append(prediction)
+            self._scores.append(self._score_pair(prediction))
+
+    def _score_pair(self, pred: dict) -> dict:
+        """What `evaluate()` reduces of one pair. "planes": each view's plane
+        AP record, or None where there is none to make: no instances, an
+        image id whose view this evaluator scored earlier (`_siamese_to_single`
+        keeps the first; across ranks the first of the gathered order, which
+        an earlier view of this rank precedes), no GT view or no GT planes.
+        "matching": the pair's GT correspondences and, per assignment key, its
+        correct and matched ones, or None when the pair is not in
+        `dataset_list`."""
+        scored = set()
+        planes = {"0": None, "1": None}
+        if "segm" in self._tasks:
+            for i in ("0", "1"):
+                insts = pred[i].get("instances", [])
+                if not insts or insts[0]["image_id"] in self._seen_images:
+                    continue
+                self._seen_images.add(insts[0]["image_id"])
+                gt_view = self.image_gt.get(pred[i]["image_id"])
+                if gt_view is not None and gt_view.get("annotations"):
+                    planes[i] = self._score_planes(pred[i], gt_view)
+                    scored.add(i)
+        matching = None
+        if "embedding" in self._plane_tasks:
+            matching = self._score_matching(pred, scored)
+        if scored:
+            trace.count("eval.views_scored", len(scored))
+        return {"planes": planes, "matching": matching}
+
+    def _score_planes(self, view: dict, gt_view: dict) -> dict:
+        """A view's plane AP record (mp3d_evaluation.py:467-743): its
+        predictions in score order, each one's score, its true-positive label
+        under the mask, plane, normal and offset criteria (rows 0-3; a GT
+        plane counts once per criterion, for its first prediction), and its
+        normal and offset errors against the GT plane of highest mask IoU."""
+        insts = view["instances"]
+        scores = np.asarray([ins["score"] for ins in insts])
+        miou = self._ious.iou(view, gt_view)
+        pm = compare_planes(np.asarray(view["pred_plane"]),
+                            [a["plane"] for a in gt_view["annotations"]])
+        order = np.argsort(-scores, kind="stable")
+        gt_id = miou[order].argmax(1)
+        normal, offset = pm["norm"][order, gt_id], pm["offset"][order, gt_id]
+        ok_iou = miou[order, gt_id] > IOU_THRESH
+        ok_n, ok_o = normal < NORMAL_THRESH, offset < OFFSET_THRESH
+        labels = np.zeros((4, len(order)), np.int64)
+        for row, cond in enumerate((ok_iou, ok_iou & ok_n & ok_o, ok_iou & ok_n, ok_iou & ok_o)):
+            hits = np.nonzero(cond)[0]
+            labels[row, hits[np.unique(gt_id[hits], return_index=True)[1]]] = 1
+        return {"scores": scores[order].astype(np.float64), "labels": labels,
+                "normal": normal.astype(np.float64), "offset": offset.astype(np.float64)}
+
+    def _score_matching(self, pred: dict, scored: set) -> Optional[dict]:
+        """The pair's correspondences (mp3d_evaluation.py:746-849): a matched
+        pair of predictions is correct when both masks reach IOU_THRESH on
+        their best GT planes and those two planes correspond. Adds the views
+        whose IoU it reads to `scored`."""
+        gt_pair = self.dataset_dict.get(pred["0"]["image_id"] + "__" + pred["1"]["image_id"])
+        if gt_pair is None:
+            return None
+        gt_corr = [list(c) for c in gt_pair["gt_corrs"]]
+        matched_iou, matched_gt = [], []
+        for i in ("0", "1"):
+            n_pred = len(pred[i].get("instances", []))
+            if not n_pred or not self._ious.gt_rles(gt_pair[i]):
+                matched_iou.append(np.zeros(n_pred))
+                matched_gt.append(np.zeros(n_pred, int))
+                continue
+            miou = self._ious.iou(pred[i], gt_pair[i])
+            scored.add(i)
+            matched_iou.append(miou.max(-1))
+            matched_gt.append(miou.argmax(-1))
+
+        counts = {}
+        for key in pred:
+            if "assignment" not in key:
+                continue
+            idxs = np.argwhere(np.asarray(pred[key]) > 0)
+            correct = 0
+            for p0, p1 in idxs:
+                if (p0 < len(matched_iou[0]) and p1 < len(matched_iou[1])
+                        and matched_iou[0][p0] >= IOU_THRESH
+                        and matched_iou[1][p1] >= IOU_THRESH):
+                    if [int(matched_gt[0][p0]), int(matched_gt[1][p1])] in gt_corr:
+                        correct += 1
+            counts[key] = (correct, len(idxs))
+        return {"gt": len(gt_corr), "counts": counts}
 
     # ------------------------------------------------------------------
     def get_optimized_dict(self, predictions) -> dict:
@@ -197,12 +301,14 @@ class MP3DEvaluator:
         Every rank returns rank 0's results; an error on rank 0 raises on
         every rank."""
         if not self._distributed:
-            return self._evaluate_main(self._predictions)
-        per_rank = all_gather_objects(self._predictions)
+            return self._evaluate_main(self._predictions, self._scores)
+        per_rank = all_gather_objects((self._predictions, self._scores))
         shared = None
         if is_main_process():
             try:
-                shared = (self._evaluate_main([p for preds in per_rank for p in preds]), None)
+                shared = (self._evaluate_main([p for preds, _ in per_rank for p in preds],
+                                              [s for _, scores in per_rank for s in scores]),
+                          None)
             except Exception as e:  # every rank must reach the second gather
                 logger.exception("evaluation on rank 0 failed")
                 shared = (None, repr(e))
@@ -212,7 +318,9 @@ class MP3DEvaluator:
         self._results = results
         return results
 
-    def _evaluate_main(self, predictions) -> "OrderedDict":
+    def _evaluate_main(self, predictions, scores) -> "OrderedDict":
+        """The metrics of `predictions` from their `_score_pair` records
+        `scores`, in the same order."""
         if not predictions:
             logger.warning("MP3DEvaluator received no predictions")
             return OrderedDict()
@@ -237,17 +345,16 @@ class MP3DEvaluator:
                 logger.exception("COCO json dump failed (non-fatal)")
 
         results: "OrderedDict" = OrderedDict()
-        ious = _MaskIous()
         if "segm" in self._tasks:
-            singles = self._siamese_to_single(predictions)
-            if singles and "instances" in singles[0]:
-                results.update(self._eval_planes(singles, ious))
-            if singles and "depth_l1_dist" in singles[0]:
-                vals = [p["depth_l1_dist"] for p in singles]
+            singles = self._siamese_to_single(predictions, scores)
+            if singles:
+                results.update(self._eval_planes([rec for _, rec in singles]))
+            if singles and "depth_l1_dist" in singles[0][0]:
+                vals = [p["depth_l1_dist"] for p, _ in singles]
                 results["depth_l1_dist"] = float(np.mean(vals))
                 self._log(f"Depth metrics: depth_l1_dist={results['depth_l1_dist']:.4f}")
         if "embedding" in self._plane_tasks:
-            results.update(self._eval_matching(predictions, ious))
+            results.update(self._eval_matching(predictions, scores))
         if "camera" in self._plane_tasks:
             for key in predictions[0]:
                 if "onePP" in key:
@@ -275,9 +382,11 @@ class MP3DEvaluator:
         return out
 
     @staticmethod
-    def _siamese_to_single(predictions):
+    def _siamese_to_single(predictions, scores):
+        """The first view with instances of each image id (the instances'),
+        in order, with its plane AP record."""
         singles, seen = [], set()
-        for pred in predictions:
+        for pred, score in zip(predictions, scores):
             for i in ("0", "1"):
                 insts = pred[i].get("instances", [])
                 if not insts:
@@ -286,79 +395,37 @@ class MP3DEvaluator:
                 if imgid in seen:
                     continue
                 seen.add(imgid)
-                singles.append(pred[i])
+                singles.append((pred[i], score["planes"][i]))
         return singles
 
     # ------------------------------------------------------------------
-    def _eval_planes(self, predictions, ious: _MaskIous, iou_thresh=0.5,
-                     normal_threshold=30.0, offset_threshold=0.3):
-        """Mask AP + plane AP variants (mp3d_evaluation.py:467-743)."""
-        mask_s, mask_l = [], []
-        plane_s, plane_l = [], []
-        pn_s, pn_l = [], []
-        po_s, po_l = [], []
-        normal_errs, offset_errs = [], []
+    def _eval_planes(self, records):
+        """Mask AP + plane AP variants (mp3d_evaluation.py:467-743) over the
+        plane AP records of the views kept, concatenated in their order."""
+        records = [r for r in records if r is not None]
         npos = sum(len(v.get("annotations", [])) for v in self.image_gt.values())
 
-        for pred in predictions:
-            image_id = pred["image_id"]
-            gt_view = self.image_gt.get(image_id)
-            if gt_view is None or "instances" not in pred:
-                continue
-            insts = pred["instances"]
-            if not insts:
-                continue
-            gt_anns = gt_view.get("annotations", [])
-            if not gt_anns:
-                continue
-            gt_planes = [a["plane"] for a in gt_anns]
+        def cat(parts):
+            return np.concatenate(parts) if parts else np.asarray([])
 
-            scores = np.asarray([ins["score"] for ins in insts])
-            miou = ious.iou(pred, gt_view)
-            pm = compare_planes(np.asarray(pred["pred_plane"]), gt_planes)
-
-            order = np.argsort(-scores, kind="stable")
-            covered = {"mask": set(), "plane": set(), "pn": set(), "po": set()}
-            for pid in order:
-                gt_id = int(np.argmax(miou[pid]))
-                pred_miou = miou[pid, gt_id]
-                normal = pm["norm"][pid, gt_id]
-                offset = pm["offset"][pid, gt_id]
-                normal_errs.append(float(normal))
-                offset_errs.append(float(offset))
-                s = float(scores[pid])
-
-                ok_iou = pred_miou > iou_thresh
-                defs = [
-                    ("mask", ok_iou, mask_s, mask_l),
-                    ("plane", ok_iou and normal < normal_threshold and offset < offset_threshold,
-                     plane_s, plane_l),
-                    ("pn", ok_iou and normal < normal_threshold, pn_s, pn_l),
-                    ("po", ok_iou and offset < offset_threshold, po_s, po_l),
-                ]
-                for name, cond, ss, ll in defs:
-                    tp = 0
-                    if cond and gt_id not in covered[name]:
-                        tp = 1
-                        covered[name].add(gt_id)
-                    ss.append(s)
-                    ll.append(tp)
-
+        scores = cat([r["scores"] for r in records])
+        mask_l, plane_l, pn_l, po_l = (cat([r["labels"][row] for r in records])
+                                       for row in range(4))
         det = {
-            "mask_ap@%.1f" % iou_thresh: compute_ap(np.asarray(mask_s), np.asarray(mask_l), npos),
-            "plane_ap@iou%.1fnormal%.1foffset%.1f" % (iou_thresh, normal_threshold, offset_threshold):
-                compute_ap(np.asarray(plane_s), np.asarray(plane_l), npos),
-            "plane_ap@iou%.1fnormal%.1f" % (iou_thresh, normal_threshold):
-                compute_ap(np.asarray(pn_s), np.asarray(pn_l), npos),
+            "mask_ap@%.1f" % IOU_THRESH: compute_ap(scores, mask_l, npos),
+            "plane_ap@iou%.1fnormal%.1foffset%.1f" % (IOU_THRESH, NORMAL_THRESH, OFFSET_THRESH):
+                compute_ap(scores, plane_l, npos),
+            "plane_ap@iou%.1fnormal%.1f" % (IOU_THRESH, NORMAL_THRESH):
+                compute_ap(scores, pn_l, npos),
             # NOTE: offset key intentionally formatted with NORMAL_threshold
             # — bug-for-bug parity with the reference's own format-string slip
             # (mp3d_evaluation.py:714-716); do NOT "fix" without breaking
             # metric-name compatibility
-            "plane_ap@iou%.1foffset%.1f" % (iou_thresh, normal_threshold):
-                compute_ap(np.asarray(po_s), np.asarray(po_l), npos),
+            "plane_ap@iou%.1foffset%.1f" % (IOU_THRESH, NORMAL_THRESH):
+                compute_ap(scores, po_l, npos),
         }
-        ne = np.asarray(normal_errs)
-        oe = np.asarray(offset_errs)
+        ne = cat([r["normal"] for r in records])
+        oe = cat([r["offset"] for r in records])
         if len(ne):
             det.update({
                 "%normal<10": float((ne < 10).mean() * 100),
@@ -374,42 +441,20 @@ class MP3DEvaluator:
         return det
 
     # ------------------------------------------------------------------
-    def _eval_matching(self, predictions, ious: _MaskIous, iou_thresh=0.5):
-        """Correspondence precision/recall/F (mp3d_evaluation.py:746-849)."""
+    def _eval_matching(self, predictions, scores):
+        """Correspondence precision/recall/F (mp3d_evaluation.py:746-849) from
+        the pairs' counts."""
         keys = [k for k in predictions[0] if "assignment" in k]
         stats = {k: {"correct": 0, "matched": 0} for k in keys}
         all_gt = 0
-        matching_metrics = {}
-        for pred in predictions:
-            pair_id = pred["0"]["image_id"] + "__" + pred["1"]["image_id"]
-            gt_pair = self.dataset_dict.get(pair_id)
-            if gt_pair is None:
+        for score in scores:
+            pair = score["matching"]
+            if pair is None:
                 continue
-            gt_corr = [list(c) for c in gt_pair["gt_corrs"]]
-            all_gt += len(gt_corr)
-
-            matched_iou, matched_gt = [], []
-            for i in ("0", "1"):
-                n_pred = len(pred[i].get("instances", []))
-                if not n_pred or not ious.gt_rles(gt_pair[i]):
-                    matched_iou.append(np.zeros(n_pred))
-                    matched_gt.append(np.zeros(n_pred, int))
-                    continue
-                miou = ious.iou(pred[i], gt_pair[i])
-                matched_iou.append(miou.max(-1))
-                matched_gt.append(miou.argmax(-1))
-
+            all_gt += pair["gt"]
             for key in keys:
-                a = np.asarray(pred[key])
-                idxs = np.argwhere(a > 0)
-                correct = 0
-                for p0, p1 in idxs:
-                    if (p0 < len(matched_iou[0]) and p1 < len(matched_iou[1])
-                            and matched_iou[0][p0] >= iou_thresh
-                            and matched_iou[1][p1] >= iou_thresh):
-                        if [int(matched_gt[0][p0]), int(matched_gt[1][p1])] in gt_corr:
-                            correct += 1
-                stats[key]["matched"] += len(idxs)
+                correct, matched = pair["counts"][key]
+                stats[key]["matched"] += matched
                 stats[key]["correct"] += correct
 
         # per-key tables (mp3d_evaluation.py:833-847); the reference returns

@@ -5,7 +5,8 @@ One module-scoped launch of `tests/torch_dist_worker.py:eval_rank` (a
 `file://` rendezvous under tmp_path) runs, on each rank: one
 `all_gather_objects`; `MP3DEvaluator(distributed=True)` fed the rank's
 strided slice of 5 pairs' fake predictions (tests/test_torch_eval.py's,
-every metric family non-trivial); `EvalRunner.test` over 5 synthetic pairs
+every metric family non-trivial; one image id in both slices, which each
+rank scores and rank 0's reduction keeps once); `EvalRunner.test` over 5 synthetic pairs
 with seeded weights (slices of 3 and 2 pairs); and the first batches of a
 `Trainer`'s loader shard. Each is held against the same run in one process.
 Then the trainer's CLI on two ranks (`--num-gpus 2 --device cpu`), and its
@@ -13,6 +14,7 @@ Then the trainer's CLI on two ranks (`--num-gpus 2 --device cpu`), and its
 process of its own, the counterpart of the JAX package's
 tests/test_two_process.py.
 """
+import copy
 import json
 import os
 import pickle
@@ -87,6 +89,9 @@ def _metrics_close(got, ref, exact_floats=False):
 def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("dist_eval")
     pairs = make_dataset(N_PAIRS, 4, seed=3, h=H, w=W)
+    # an image id in both ranks' slices: pair 0's view 0 (rank 0) again as pair
+    # 3's view 1 (rank 1), first in the rank-major order as in one process
+    pairs[3]["1"] = copy.deepcopy(pairs[0]["0"])
     outputs = []
     for i, p in enumerate(pairs):
         meta = {"image_id0": p["0"]["image_id"], "image_id1": p["1"]["image_id"],

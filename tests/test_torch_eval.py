@@ -282,40 +282,102 @@ def test_postprocess_and_evaluator_match_jax_exactly(tmp_path):
         assert_same(a, b)
 
 
+def _batch_of(pairs, jpairs, lo, hi, seed):
+    """Pairs [lo, hi) with fake predictions through both packages' postprocess."""
+    batch, jbatch = pairs[lo:hi], jpairs[lo:hi]
+    infer = fake_inference(batch, seed=seed)
+    metas = [{"image_id0": p["0"]["image_id"], "image_id1": p["1"]["image_id"],
+              "file_name0": p["0"]["file_name"], "file_name1": p["1"]["file_name"]}
+             for p in batch]
+    return (batch, postprocess_batch(infer, metas, H, W)), (jbatch, jax_postprocess(infer, metas, H, W))
+
+
 def test_evaluator_computes_each_views_iou_once(tmp_path):
-    """evaluate()'s two passes read one mask IoU matrix per (prediction view,
-    GT view). Pair 2 shows pair 0's view 0 again (the same image id, its own
-    dicts) with other predictions: the plane AP pass skips it as a seen image,
-    the matching pass must not take pair 0's matrix for it."""
+    """process() scores each view as its batch arrives, with one mask IoU
+    matrix per (prediction view, GT view), and evaluate() only reduces. Pair 2
+    shows pair 0's view 0 again (the same image id, its own dicts) with other
+    predictions: its plane AP record is skipped as a seen image, and its
+    correspondences must not take pair 0's matrix."""
     pairs, jpairs = make_dataset(4, 4, seed=5, h=H, w=W), jax_make_dataset(4, 4, seed=5, h=H, w=W)
     for ps in (pairs, jpairs):
         ps[2]["0"] = copy.deepcopy(ps[0]["0"])
     jcfg, tcfg = _eval_cfgs(str(tmp_path))
     theirs = JaxEvaluator("synthetic_test", jcfg, dataset_list=jpairs)
     ours = MP3DEvaluator("synthetic_test", tcfg, dataset_list=pairs)
-    for lo, seed in ((0, 6), (2, 7)):
-        batch, jbatch = pairs[lo:lo + 2], jpairs[lo:lo + 2]
-        infer = fake_inference(batch, seed=seed)
-        metas = [{"image_id0": p["0"]["image_id"], "image_id1": p["1"]["image_id"],
-                  "file_name0": p["0"]["file_name"], "file_name1": p["1"]["file_name"]}
-                 for p in batch]
-        theirs.process(jbatch, jax_postprocess(infer, metas, H, W))
-        ours.process(batch, postprocess_batch(infer, metas, H, W))
-    ref = theirs.evaluate()
+    batches = [_batch_of(pairs, jpairs, lo, lo + 2, seed) for lo, seed in ((0, 6), (2, 7))]
     trace.reset()
     trace.enable()
     try:
+        for (batch, results), (jbatch, jresults) in batches:
+            theirs.process(jbatch, jresults)
+            ours.process(batch, results)
+        scored = trace.snapshot()["counts"]
+        trace.reset()
         got = ours.evaluate()
+        reduced = trace.snapshot()["counts"]
     finally:
         trace.disable()
-    counts = trace.snapshot()["counts"]
-    trace.reset()
+        trace.reset()
+    ref = theirs.evaluate()
     assert 0 < ref["mask_ap@0.5"] < 1 and 0 < ref["precision"] < 1 and 0 < ref["recall"] < 1
     assert_same(dict(got), dict(ref))
     # 8 views of 4 pairs, each its own (prediction view, GT view): the plane AP
-    # pass computes 7 (pair 2's view 0 is a seen image), the matching pass reads
-    # those 7 and computes pair 2's view 0
-    assert counts.get("eval.iou_matrices") == 8 and counts.get("eval.iou_reused") == 7, counts
+    # records compute 7 (pair 2's view 0 is a seen image), the correspondences
+    # read those 7 and compute pair 2's view 0; all 8 views are scored
+    assert scored == {"eval.iou_matrices": 8, "eval.iou_reused": 7, "eval.views_scored": 8}
+    assert reduced == {}
+
+
+def test_evaluator_scoring_in_process_matches_jax_across_batches(tmp_path):
+    """Many small process() batches against the JAX evaluator, which scores
+    at evaluate(): a view repeated across batches, a view without instances
+    ahead of a later one of the same image id, a pair that is not in
+    dataset_list, scores tied across views, two predictions over one GT
+    plane; then reset() and a second split, which gives what a fresh
+    evaluator gives."""
+    n = 7
+    pairs, jpairs = make_dataset(n, 4, seed=8, h=H, w=W), jax_make_dataset(n, 4, seed=8, h=H, w=W)
+    for ps in (pairs, jpairs):
+        ps[4]["1"] = copy.deepcopy(ps[1]["0"])  # pair 1's view 0 again, two batches later
+        ps[5]["0"] = copy.deepcopy(ps[2]["1"])  # pair 2's view 1 again, without instances there
+    batches = [_batch_of(pairs, jpairs, lo, min(lo + 2, n), 11 + lo) for lo in range(0, n, 2)]
+    # pair 2's view 1 has no instances in its batch, so pair 5's is the first of its image id
+    for out in (batches[1][0][1][0], batches[1][1][1][0]):
+        out["1"]["instances"], out["1"]["pred_plane"] = [], out["1"]["pred_plane"][:0]
+    for (_, results), (_, jresults) in batches:
+        for out in results + jresults:
+            for v in ("0", "1"):
+                for ins in out[v]["instances"]:  # ties across views: the records' order decides
+                    ins["score"] = round(ins["score"], 1)
+    # a second prediction over each GT plane of a view: a GT plane counts once, for its first
+    for out in (batches[0][0][1][0], batches[0][1][1][0]):
+        view = out["0"]
+        view["instances"] += [dict(ins, score=ins["score"] / 2) for ins in view["instances"]]
+        view["pred_plane"] = np.concatenate([view["pred_plane"]] * 2)
+    jcfg, tcfg = _eval_cfgs(str(tmp_path))
+    # pair 6 is left out of the evaluators' GT: no correspondences, and no GT views of its own
+    theirs = JaxEvaluator("synthetic_test", jcfg, dataset_list=jpairs[:6])
+    ours = MP3DEvaluator("synthetic_test", tcfg, dataset_list=pairs[:6])
+    for (batch, results), (jbatch, jresults) in batches:
+        theirs.process(jbatch, jresults)
+        ours.process(batch, results)
+    ref = theirs.evaluate()
+    assert 0 < ref["mask_ap@0.5"] < 1 and 0 < ref["precision"] < 1 and 0 < ref["recall"] < 1
+    assert_same(dict(ours.evaluate()), dict(ref))
+
+    # a second split on the reset evaluator: pairs 3-5 in other batches
+    ours.reset()
+    fresh = MP3DEvaluator("synthetic_test", tcfg, dataset_list=pairs[:6])
+    theirs = JaxEvaluator("synthetic_test", jcfg, dataset_list=jpairs[:6])
+    for lo, hi, seed in ((3, 4, 21), (4, 6, 22)):
+        (batch, results), (jbatch, jresults) = _batch_of(pairs, jpairs, lo, hi, seed)
+        theirs.process(jbatch, jresults)
+        for ev in (ours, fresh):
+            ev.process(batch, copy.deepcopy(results))
+    ref = theirs.evaluate()
+    got = ours.evaluate()
+    assert_same(dict(got), dict(ref))
+    assert_same(dict(got), dict(fresh.evaluate()))
 
 
 # --------------------------------------------------- (f) the whole entry point

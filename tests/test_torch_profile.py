@@ -160,8 +160,10 @@ def test_setups_feed_the_recorder(kind, tmp_path):
     if kind == "entry":
         assert calls["eval.test"] == calls["eval.evaluate"] == 1
         assert step.__self__.last_eval_stats["pairs"] == 2 * n
-        # each view's mask IoU computed by the plane AP pass, read again by the matching pass
-        assert snap["counts"] == {"eval.iou_matrices": 4 * n, "eval.iou_reused": 4 * n}
+        # each view scored in process(): its mask IoU computed for its plane AP
+        # record, read again for its pair's correspondences
+        assert snap["counts"] == {"eval.iou_matrices": 4 * n, "eval.iou_reused": 4 * n,
+                                  "eval.views_scored": 4 * n}
     if kind == "train":
         arrays = [a for b in batches[1:] for k, v in b.items() if k != "meta"
                   for a in (v.values() if isinstance(v, dict) else [v])]

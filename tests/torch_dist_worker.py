@@ -208,9 +208,9 @@ def eval_rank(spec_path):
     calls = []
     main_fn = evaluator_mod.MP3DEvaluator._evaluate_main
 
-    def counted(self, predictions):
+    def counted(self, predictions, scores):
         calls.append(len(predictions))
-        return main_fn(self, predictions)
+        return main_fn(self, predictions, scores)
 
     evaluator_mod.MP3DEvaluator._evaluate_main = counted
     try:
