@@ -64,7 +64,7 @@ Phases, in order; any failure exits non-zero before the last line:
      library's SASS (cuobjdump -sass), which must be > 0; the bf16
      wrapper's host time with an f32 and with a bf16 weight;
  12. fused-tail eval path: the phase-5 model and batches with
-     `fuse_tail=True`: B4's counter rises by exactly 24 per batch (12
+     MODEL.RESNETS.FUSE_TAIL True: B4's counter rises by exactly 24 per batch (12
      identity blocks, two calls each), res2..res5 match the unfused backbone
      within 1e-4 of max |ref|, the outputs match phase 5's at phase 6's
      limits, and the two eval steps are timed in alternating rounds;
@@ -2163,9 +2163,10 @@ def run_fused_path(torch, dev, model, batches, outs, card):
     from nopesac_torch.utils.device import LAUNCHES
 
     cfg = load_cfg()
+    cfg.MODEL.RESNETS.FUSE_TAIL = True
     h, w = cfg.INPUT.IMAGE_SIZE
     nq = cfg.MODEL.SEM_SEG_HEAD.NUM_OBJECT_QUERIES
-    fused = build_model_from_cfg(cfg, device=dev, fuse_tail=True)
+    fused = build_model_from_cfg(cfg, device=dev)
     fused.load_state_dict(model.state_dict(), strict=True)
     mean = torch.tensor(cfg.MODEL.PIXEL_MEAN, device=dev)
     std = torch.tensor(cfg.MODEL.PIXEL_STD, device=dev)
@@ -2233,7 +2234,8 @@ def run_bf16_eval_path(torch, dev, model, fused, batches, card):
     nq = cfg.MODEL.SEM_SEG_HEAD.NUM_OBJECT_QUERIES
     steps, backbones = {}, {"f32": model.backbone}
     for name, fuse in (("unfused", False), ("fused", True)):
-        m16 = build_model_from_cfg(cfg, device=dev, fuse_tail=fuse)
+        cfg.MODEL.RESNETS.FUSE_TAIL = fuse
+        m16 = build_model_from_cfg(cfg, device=dev)
         m16.load_state_dict(model.state_dict(), strict=True)
         backbones[name] = m16.backbone
         step = make_eval_step(m16, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)

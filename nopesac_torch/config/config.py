@@ -215,6 +215,10 @@ def get_cfg() -> CfgNode:
     c.MODEL.RESNETS.STRIDE_IN_1X1 = False
     c.MODEL.RESNETS.OUT_FEATURES = ["res2", "res3", "res4", "res5"]
     c.MODEL.RESNETS.NORM = "FrozenBN"
+    # in eval mode, each identity block's conv1 and conv3 (with their FrozenBN,
+    # the residual and the ReLU) run as kernel B4 (`ops/bottleneck.py`); it
+    # adds no parameters, and training takes the unfused blocks
+    c.MODEL.RESNETS.FUSE_TAIL = False
 
     h = c.MODEL.SEM_SEG_HEAD = CfgNode()
     h.NAME = "PlaneTRHead"

@@ -28,15 +28,15 @@ from ..utils.weights import seeded_init
 
 
 def build_model_from_cfg(cfg: CfgNode, device: DeviceLike = None,
-                         seed: Optional[int] = None, fuse_tail: bool = False) -> PlaneTRNopeSAC:
+                         seed: Optional[int] = None) -> PlaneTRNopeSAC:
     """The model of a config, in eval mode on `device` (default `cuda`),
     with the config's loss switches and weights for `train_forward`. `seed`
     fills it with seeded random weights; otherwise load a state_dict into it.
-    `fuse_tail` runs the backbone's identity-block tails through kernel B4 at
-    inference (no config key: the JAX package has none either). The compute
-    dtypes come from MODEL.COMPUTE_DTYPE, BACKBONE_TRAIN_DTYPE and
-    FPN_TRAIN_DTYPE, train-mode backbone checkpointing from MODEL.REMAT,
-    the depth branch from MODEL.DEPTH_ON. Sets the precision policy."""
+    MODEL.RESNETS.FUSE_TAIL runs the backbone's identity-block tails through
+    kernel B4 at inference. The compute dtypes come from MODEL.COMPUTE_DTYPE,
+    BACKBONE_TRAIN_DTYPE and FPN_TRAIN_DTYPE, train-mode backbone
+    checkpointing from MODEL.REMAT, the depth branch from MODEL.DEPTH_ON.
+    Sets the precision policy."""
     dev = resolve_device(device)
     set_f32_parity()
     h = cfg.MODEL.SEM_SEG_HEAD
@@ -80,7 +80,7 @@ def build_model_from_cfg(cfg: CfgNode, device: DeviceLike = None,
         inference_out_cam_type=cam.INFERENCE_OUT_CAM_TYPE,
         transformer_dropout=h.get("DROPOUT", 0.1),
         train_settings=settings,
-        fuse_tail=fuse_tail,
+        fuse_tail=bool(cfg.MODEL.RESNETS.FUSE_TAIL),
         dtype=resolve_dtype(cfg.MODEL.COMPUTE_DTYPE, "COMPUTE_DTYPE"),
         backbone_train_dtype=resolve_dtype(cfg.MODEL.BACKBONE_TRAIN_DTYPE,
                                            "BACKBONE_TRAIN_DTYPE"),

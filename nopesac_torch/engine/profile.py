@@ -4,14 +4,15 @@ time goes on the card, by the program's own spans (`utils/trace.py`).
     python -m nopesac_torch.engine.profile [--config-file configs/inference_mp3d.yaml]
         [--batches 5] [--fuse-tail] [--out FILE]
     python -m nopesac_torch.engine.profile --entry [--config-file configs/inference_mp3d.yaml]
-        [--batches 32] [--out FILE] [KEY VALUE ...]
+        [--batches 32] [--fuse-tail] [--out FILE] [KEY VALUE ...]
     python -m nopesac_torch.engine.profile --train [--config-file configs/train_mp3d_step3.yaml]
         [--batches 3] [--memory] [--out FILE] [KEY VALUE ...]
 
-The eval step: builds the inference model with seeded random weights (with
-`--fuse-tail`, its backbone runs the identity-block tails through kernel B4),
-runs a warm-up batch of TEST.IMS_PER_BATCH synthetic uint8 pairs, each batch
-inside the span `eval.step`. The entry point (`--entry`): `EvalRunner.test`
+The eval step: builds the inference model with seeded random weights, runs
+a warm-up batch of TEST.IMS_PER_BATCH synthetic uint8 pairs, each batch
+inside the span `eval.step`. `--fuse-tail` sets MODEL.RESNETS.FUSE_TAIL (in
+the eval step and the entry point): the backbone runs its identity-block
+tails through kernel B4. The entry point (`--entry`): `EvalRunner.test`
 as `--eval-only` runs it (mapper, eval step, one-deep pipeline, fetch,
 postprocess, evaluator, `evaluate()`, each in its `eval.*` span) on a
 warm-up split of 2 batches, then on one split of `--batches` batches, of
@@ -29,7 +30,8 @@ step. Then three passes of `--batches` batches each:
      copies; the eval step's segments replayed as CUDA graphs, captured,
      and run eagerly, `eval.graph_*`: in a warm split the replays alone;
      the views the evaluator's `process()` scored and the mask IoU matrices
-     it made and read again, `eval.views_scored`, `eval.iou_*`);
+     it made and read again, `eval.views_scored`, `eval.iou_*`; with the
+     fused tail, B4's calls, `model.fused_tail_calls`, 24 per batch);
   2. under torch.profiler, where each span is a `nopesac:` range: the
      device time of the operations launched inside each range (a host call
      that starts inside it shares its id with the device operation it
@@ -83,10 +85,10 @@ WAIT_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchr
 OUTSIDE = "none"
 
 
-def _eval_setup(cfg, n_batches, device=None, fuse_tail=False):
+def _eval_setup(cfg, n_batches, device=None):
     h, w = cfg.INPUT.IMAGE_SIZE
     bs = cfg.TEST.IMS_PER_BATCH
-    model = build_model_from_cfg(cfg, device=device, seed=0, fuse_tail=fuse_tail)
+    model = build_model_from_cfg(cfg, device=device, seed=0)
     eval_step = make_eval_step(model, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
     batches = [synthetic_pairs(bs, h, w, seed=s, device=device) for s in range(n_batches + 1)]
 
@@ -320,7 +322,8 @@ def main(argv=None) -> int:
     mode.add_argument("--entry", action="store_true",
                       help="profile EvalRunner.test on one split of --batches batches")
     ap.add_argument("--batches", type=int, default=5)
-    ap.add_argument("--fuse-tail", action="store_true", help="eval step with kernel B4")
+    ap.add_argument("--fuse-tail", action="store_true",
+                    help="MODEL.RESNETS.FUSE_TAIL True: the backbone's tails through kernel B4")
     ap.add_argument("--memory", action="store_true",
                     help="one more step under the allocator's history: live memory at its peak")
     ap.add_argument("--out", default=None)
@@ -335,12 +338,13 @@ def main(argv=None) -> int:
     if args.train:  # f32 without REMAT, the settings of the earlier train profiles
         cfg.merge_from_list(["MODEL.COMPUTE_DTYPE", "float32",
                              "MODEL.BACKBONE_TRAIN_DTYPE", "float32", "MODEL.REMAT", "False"])
+    if args.fuse_tail:
+        cfg.merge_from_list(["MODEL.RESNETS.FUSE_TAIL", "True"])
     if args.opts:
         cfg.merge_from_list(args.opts)
     h, w = cfg.INPUT.IMAGE_SIZE
     kind = "train" if args.train else "entry" if args.entry else "eval"
-    extra = {"fuse_tail": args.fuse_tail} if kind == "eval" else {}
-    bs, step, batches = SETUPS[kind](cfg, args.batches, **extra)
+    bs, step, batches = SETUPS[kind](cfg, args.batches)
     step(batches[0])  # warm-up
     untraced = _pass(step, batches[1:])
 
@@ -365,7 +369,7 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, timeout=60)
     result = {
         "device": torch.cuda.get_device_name(0), "card": smi.stdout.strip().splitlines()[0],
-        "step": kind, "fuse_tail": args.fuse_tail,
+        "step": kind, "fuse_tail": bool(cfg.MODEL.RESNETS.FUSE_TAIL),
         "pairs_per_batch": bs, "image": [h, w],
         "sinkhorn_iters": cfg.MODEL.MATCHING_HEAD.SINKHORN_ITERS,
         "peak_memory_gib": peak / 2**30,

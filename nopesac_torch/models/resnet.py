@@ -4,9 +4,12 @@ FrozenBN, projection shortcut on the first block of each stage, and the
 reference checkpoint's names `stem.conv1`, `res{2..5}.{i}.conv{1,2,3}`,
 `res{2..5}.0.shortcut`, each conv with a `.norm` child.
 
-`fuse_tail=True` runs each identity block's conv1 and conv3 (with their
-FrozenBN, the residual and the ReLU) as kernel B4 (`ops/bottleneck.py`) in
-eval mode; it adds no parameters. Off by default, as in the JAX package.
+`fuse_tail=True` (MODEL.RESNETS.FUSE_TAIL) runs each identity block's conv1
+and conv3 (with their FrozenBN, the residual and the ReLU) as kernel B4
+(`ops/bottleneck.py`) in eval mode; it adds no parameters. Off by default, as
+in the JAX package. Each such call counts `model.fused_tail_calls`
+(`utils/trace.py`) where the card runs it: at each replay of the backbone's
+CUDA graph, or now where no graph is being captured.
 
 Compute dtypes, as the JAX package's `ResNet(dtype, train_block_dtype)`:
 in eval mode everything runs in `dtype` (MODEL.COMPUTE_DTYPE). In train
@@ -28,7 +31,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.bottleneck import conv1x1_bn_act
-from ..utils import graphs
+from ..utils import graphs, trace
 from .layers import Cast, ConvNorm, FrozenBatchNorm2d, conv2d, set_compute_dtype
 
 STAGE_BLOCKS = (3, 4, 6, 3)  # bottleneck blocks of res2..res5
@@ -36,6 +39,17 @@ STAGE_BLOCKS = (3, 4, 6, 3)  # bottleneck blocks of res2..res5
 
 def _conv_fbn(in_ch, out_ch, k, stride=1, relu=False):
     return ConvNorm(in_ch, out_ch, k, stride=stride, norm=FrozenBatchNorm2d(out_ch), relu=relu)
+
+
+def _count_tail() -> None:
+    trace.count("model.fused_tail_calls")
+
+
+def _fused(x, conv: ConvNorm, residual=None):
+    """One 1x1 conv of an identity block with its FrozenBN (+ residual) and
+    the ReLU, as kernel B4."""
+    graphs.on_replay(_count_tail)
+    return conv1x1_bn_act(x, conv.weight, *conv.norm.folded(), residual=residual, relu=True)
 
 
 class BasicStem(nn.Module):
@@ -68,9 +82,7 @@ class Bottleneck(Cast, nn.Module):
 
     def forward(self, x):
         if self.fuse_tail and not self.training and self.shortcut is None:
-            out = conv1x1_bn_act(x, self.conv1.weight, *self.conv1.norm.folded(), relu=True)
-            return conv1x1_bn_act(self.conv2(out), self.conv3.weight, *self.conv3.norm.folded(),
-                                  residual=x, relu=True)
+            return _fused(self.conv2(_fused(x, self.conv1)), self.conv3, residual=x)
         bdt = self.compute_dtype()
         odt = torch.float32 if self.training else bdt
         xb = x.to(bdt)  # one copy in the interior's dtype for conv1 and the shortcut

@@ -11,7 +11,11 @@
     its child spans on the same thread cover), summed per (name, parent),
     the parent being the innermost span open on the same thread.
 
-`count(name, n)` adds to a counter while the recorder is on. `snapshot()`
+`count(name, n)` adds to a counter while the recorder is on. A count of
+work inside a CUDA graph of the eval step goes through
+`utils/graphs.py:on_replay`, so that it counts at each replay, as
+`model.fused_tail_calls` does (one per kernel-B4 call of the backbone's
+fused identity-block tails, `models/resnet.py`). `snapshot()`
 returns what the recorder holds; `reset()` empties it. The aggregates are per
 (name, parent), so the recorder's memory does not grow with the run.
 

@@ -371,7 +371,8 @@ def eval_outputs(shared):
         step = make_eval_step(models[dt], H, 128, tcfg.MODEL.PIXEL_MEAN, tcfg.MODEL.PIXEL_STD)
         out[f"port_{dt}"] = _flat(step(torch.from_numpy(u[0]), torch.from_numpy(u[1])))
     tcfg.MODEL.COMPUTE_DTYPE = BF16
-    fused = build_model_from_cfg(tcfg, device="cpu", fuse_tail=True)
+    tcfg.MODEL.RESNETS.FUSE_TAIL = True
+    fused = build_model_from_cfg(tcfg, device="cpu")
     fused.load_state_dict(sd, strict=True)
     step = make_eval_step(fused, H, 128, tcfg.MODEL.PIXEL_MEAN, tcfg.MODEL.PIXEL_STD)
     out["fused_bfloat16"] = _flat(step(torch.from_numpy(u[0]), torch.from_numpy(u[1])))

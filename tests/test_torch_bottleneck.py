@@ -208,7 +208,10 @@ def test_fused_tail_runs_in_eval_only_on_identity_blocks(backbones, monkeypatch)
 def test_fuse_tail_adds_no_parameters():
     plain, fused = resnet.ResNet(), resnet.ResNet(fuse_tail=True)
     assert list(plain.state_dict()) == list(fused.state_dict())
-    _, tcfg = _cfgs()
-    models = [build_model_from_cfg(tcfg, device="cpu", fuse_tail=f) for f in (False, True)]
+    models = []
+    for fuse in (False, True):
+        _, tcfg = _cfgs()
+        tcfg.MODEL.RESNETS.FUSE_TAIL = fuse
+        models.append(build_model_from_cfg(tcfg, device="cpu"))
     assert list(models[0].state_dict()) == list(models[1].state_dict())
     assert all(m.backbone.res2[1].fuse_tail == f for m, f in zip(models, (False, True)))

@@ -417,7 +417,11 @@ def entry_point(tmp_path_factory):
     trainer = Trainer(jcfg, image_hw=(H, W), training=False)
     ref = trainer.test(dataset_list=jax_make_dataset(n_pairs=2, n_planes=4, h=H, w=W, seed=3))
     state = jax.tree_util.tree_map(np.asarray, (trainer.state.params, trainer.state.batch_stats))
-    model = build_model_from_cfg(tcfg, device="cpu", fuse_tail=True)
+    tcfg = tcfg.clone()
+    tcfg.defrost()
+    tcfg.MODEL.RESNETS.FUSE_TAIL = True
+    tcfg.freeze()
+    model = build_model_from_cfg(tcfg, device="cpu")
     model.load_state_dict(state_dict_from_jax(*state, image_size=(H, W)), strict=True)
     tester = EvalRunner(tcfg, model)
     pairs = make_dataset(n_pairs=2, n_planes=4, h=H, w=W, seed=3)

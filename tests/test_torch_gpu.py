@@ -528,11 +528,12 @@ def test_eval_step_replay_is_bit_equal_to_its_eager_run(cuda, dtype, fuse_tail):
     """Three batches of distinct images at B = 4, 480x640: the first call
     of the signature runs eagerly, the second captures, the third and a
     repeat of the first replay; each is bit-equal to the eager step on its
-    batch. With bf16 and `fuse_tail`, B4's launches are inside the
-    backbone's graph, and count at each of its replays."""
-    cfg = _eval_cfg("MODEL.COMPUTE_DTYPE", dtype)
+    batch. With bf16 and MODEL.RESNETS.FUSE_TAIL, B4's launches are inside
+    the backbone's graph: they and `model.fused_tail_calls` count 24 per
+    batch, at each of its replays."""
+    cfg = _eval_cfg("MODEL.COMPUTE_DTYPE", dtype, "MODEL.RESNETS.FUSE_TAIL", str(fuse_tail))
     h, w = cfg.INPUT.IMAGE_SIZE
-    model = build_model_from_cfg(cfg, device=cuda, seed=0, fuse_tail=fuse_tail)
+    model = build_model_from_cfg(cfg, device=cuda, seed=0)
     step = make_eval_step(model, h, w, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD)
     batches = _host_batches(cfg, 3)
     want = [_eager(step, model, b) for b in batches]
@@ -547,6 +548,8 @@ def test_eval_step_replay_is_bit_equal_to_its_eager_run(cuda, dtype, fuse_tail):
     launched = {n: c - before[n] for n, c in LAUNCHES.snapshot().items() if c != before[n]}
     assert launched == {"select_maps": 4, "sinkhorn": 4,
                         **({"bottleneck_tail": 4 * 24} if fuse_tail else {})}
+    tails = trace.snapshot()["counts"].get("model.fused_tail_calls", 0)
+    assert tails == (4 * 24 if fuse_tail else 0)
     segments = len(graphs.cache_of(model))
     assert segments == 12
     assert _graph_counts() == {"eval.graph_eager": segments, "eval.graph_captures": segments,

@@ -102,6 +102,8 @@ def test_config_copy_reads_repo_yamls_like_the_jax_package(config):
     a, b = ours.to_dict(), theirs.to_dict()
     assert a["MODEL"].pop("DEVICE") == "cuda"
     b["MODEL"].pop("DEVICE")
+    # the port's own key (B4 on the eval path), off unless a config sets it
+    assert a["MODEL"]["RESNETS"].pop("FUSE_TAIL") is False
     assert a == b
 
 
